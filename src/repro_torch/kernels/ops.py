@@ -1,0 +1,54 @@
+"""The ``"cuda"`` backend's primitives (counterpart of
+:mod:`repro.kernels.ops`): ``argsort_keys``, ``segmented_combine`` and
+``merge_absorb_sorted``.
+
+On a CPU tensor each takes its kernel's plain version; on any other
+device it launches the kernel or raises — never a quiet fallback.  Each
+kernel launch made through these wrappers adds one to
+``LAUNCHES[<kernel>]``, so a run can show that its main path went through
+the kernels.  The reference's ``(T, N)`` tile and uint32-lane plumbing
+(``_state_to_tiles``, ``_plane_to_tile``, ``_key_lanes``) is TPU layout
+and has no counterpart: the kernels take int64 keys and (N, V) planes,
+and width-0 planes stay width 0.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.types import AggState
+from repro_torch.kernels import bitonic_sort, merge_path, segmented_reduce
+
+LAUNCHES = {"argsort": 0, "segmented_combine": 0, "merge_absorb": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def argsort_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Stable argsort of an int64 key vector (int32 permutation)."""
+    if keys.device.type == "cpu":
+        return bitonic_sort.argsort_plain(keys)
+    perm = bitonic_sort.argsort_cuda(keys)
+    LAUNCHES["argsort"] += 1
+    return perm
+
+
+def segmented_combine(state: AggState) -> AggState:
+    """Combine adjacent equal keys of a key-sorted state (groups compacted
+    to the front, EMPTY-padded, same capacity)."""
+    if state.device.type == "cpu":
+        return segmented_reduce.segmented_combine_plain(state)
+    out = segmented_reduce.segmented_combine_cuda(state)
+    LAUNCHES["segmented_combine"] += 1
+    return out
+
+
+def merge_absorb_sorted(a: AggState, b: AggState, *, assume_unique: bool = False) -> AggState:
+    """Merge-absorb two key-sorted states into capacity ``|a|+|b|``."""
+    if a.device.type == "cpu":
+        return merge_path.merge_absorb_plain(a, b, assume_unique=assume_unique)
+    out = merge_path.merge_absorb_cuda(a, b, assume_unique=assume_unique)
+    LAUNCHES["merge_absorb"] += 1
+    return out

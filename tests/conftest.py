@@ -17,3 +17,9 @@ import pytest
 def _clear_jax_caches_between_modules():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; skips where there is none"
+    )

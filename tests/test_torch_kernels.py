@@ -1,0 +1,185 @@
+"""The port's kernel modules held against the JAX package's kernels.
+
+Each plain version (what the port's wrappers run on a CPU tensor, and what
+the CUDA kernels are held against on the card) must agree with the Pallas
+kernel in interpret mode at <= 256 rows, where the reference pads to a
+power of two, and with the reference's ``"xla"`` backend at a few thousand
+rows.  Keys and counts must be equal; float planes agree within rtol 1e-4
+(the two sum in different orders).
+"""
+import functools
+
+import jax
+import jax.experimental
+import numpy as np
+import pytest
+import torch
+
+from repro.core import sorted_ops as jso
+from repro.core.types import key_dtype_context, rows_to_state as j_rows_to_state
+from repro_torch.core.types import FIELDS, AggState, state_from_numpy, state_to_numpy
+from repro_torch.kernels import ops
+
+RNG = np.random.default_rng(11)
+
+
+@pytest.fixture(autouse=True)
+def _reference_x64_scope(monkeypatch):
+    """The reference scopes its uint64 work with
+    ``jax.experimental.enable_x64``, which newer JAX releases provide as
+    ``jax.enable_x64``; lend it the old name for one test."""
+    if not hasattr(jax.experimental, "enable_x64"):
+        monkeypatch.setattr(jax.experimental, "enable_x64",
+                            lambda: jax.enable_x64(True), raising=False)
+
+
+def _keys(n, key_dtype, domain, empty_frac=0.0):
+    k = RNG.integers(0, domain, n).astype(key_dtype)
+    if key_dtype == np.uint64:  # both halves of the u64 domain
+        k = k * np.uint64(0x9E3779B97F4A7C15 // domain)
+    k[RNG.random(n) < empty_frac] = np.iinfo(key_dtype).max
+    return k
+
+
+def _ref_state(keys, payload, widths=None):
+    """A reference (JAX) state as NumPy arrays."""
+    with key_dtype_context(keys):
+        st = j_rows_to_state(keys, payload, widths=widths)
+        return {f: np.asarray(getattr(st, f)) for f in FIELDS}
+
+
+def _sorted_state(n, key_dtype, domain, width, *, unique=False, widths=None):
+    """Key-sorted rows; ``unique`` draws distinct keys (a duplicate-free
+    ordered index), else keys repeat."""
+    k = _keys(n, key_dtype, domain)
+    if unique:
+        k = np.unique(k)
+    k = np.sort(k)
+    pay = RNG.normal(size=(k.size, width)).astype(np.float32)
+    return _ref_state(k, pay, widths)
+
+
+def _jax_call(fn, *states, **kw):
+    """``fn`` of the reference, jitted (one compile instead of one per op)."""
+    keys = states[0]["keys"]
+    with key_dtype_context(keys):
+        js = [jso.AggState(*(jax.numpy.asarray(s[f]) for f in FIELDS)) for s in states]
+        return jax.jit(functools.partial(fn, **kw))(*js)
+
+
+def _np(jstate):
+    return {f: np.asarray(getattr(jstate, f)) for f in FIELDS}
+
+
+def _port(arrs) -> AggState:
+    return state_from_numpy(arrs, device="cpu")
+
+
+def _assert_states(got: AggState, want: dict):
+    g = state_to_numpy(got)
+    np.testing.assert_array_equal(g["keys"], want["keys"])
+    np.testing.assert_array_equal(g["count"], want["count"])
+    for f in ("sum", "min", "max"):
+        np.testing.assert_allclose(g[f], want[f], rtol=1e-4, atol=1e-5, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# argsort (bitonic_sort_multi through ops.argsort_keys)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+def test_argsort_plain_matches_pallas_with_interior_empty(key_dtype):
+    """Stable order, interior EMPTY rows included (the reference's index
+    lane makes its bitonic network stable; the plain version must give the
+    same permutation)."""
+    k = _keys(100, key_dtype, 40, empty_frac=0.4)  # the reference pads to 128
+    arrs = _ref_state(k, None)
+    want = _jax_call(lambda s: jso.dispatch.get_backend("pallas").argsort(s.keys), arrs)
+    got = ops.argsort_keys(_port(arrs).keys)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+def test_argsort_plain_matches_xla(key_dtype):
+    k = _keys(3000, key_dtype, 500, empty_frac=0.1)
+    arrs = _ref_state(k, None)
+    want = _jax_call(lambda s: jso.dispatch.get_backend("xla").argsort(s.keys), arrs)
+    np.testing.assert_array_equal(ops.argsort_keys(_port(arrs).keys).numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# segmented combine (segmented_scan_tiles + _compact)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("key_dtype,n,width,widths", [
+    (np.uint32, 200, 3, None), (np.uint64, 256, 2, (2, 0, 0)),
+])
+def test_segmented_combine_plain_matches_pallas(key_dtype, n, width, widths):
+    arrs = _sorted_state(n, key_dtype, max(2, n // 8), width, widths=widths)
+    want = _np(_jax_call(jso.segmented_combine, arrs, backend="pallas"))
+    _assert_states(ops.segmented_combine(_port(arrs)), want)
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+def test_segmented_combine_plain_matches_xla(key_dtype):
+    arrs = _sorted_state(3000, key_dtype, 400, 2)
+    arrs["keys"] = np.where(np.arange(3000) < 2500, arrs["keys"], np.iinfo(key_dtype).max)
+    want = _np(_jax_call(jso.segmented_combine, arrs, backend="xla"))
+    _assert_states(ops.segmented_combine(_port(arrs)), want)
+
+
+# ---------------------------------------------------------------------------
+# merge-absorb (merge_path_tiles + _compact)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+def test_merge_absorb_plain_matches_pallas(key_dtype):
+    """Unequal lengths, both inputs duplicate-free, so both combine paths of
+    the plain version (segmented and pair) answer the one kernel result."""
+    a = _sorted_state(150, key_dtype, 200, 2, unique=True)
+    b = _sorted_state(70, key_dtype, 200, 2, unique=True)
+    want = _np(_jax_call(jso.merge_absorb, a, b, backend="pallas"))
+    for assume_unique in (False, True):
+        _assert_states(
+            ops.merge_absorb_sorted(_port(a), _port(b), assume_unique=assume_unique), want)
+
+
+@pytest.mark.parametrize("key_dtype,assume_unique", [(np.uint32, False), (np.uint64, True)])
+def test_merge_absorb_plain_matches_xla(key_dtype, assume_unique):
+    a = _sorted_state(2000, key_dtype, 2500, 1, unique=True)
+    b = _sorted_state(700, key_dtype, 2500, 1, unique=assume_unique)  # else duplicates
+    want = _np(_jax_call(jso.merge_absorb, a, b, backend="xla", assume_unique=assume_unique))
+    _assert_states(ops.merge_absorb_sorted(_port(a), _port(b), assume_unique=assume_unique),
+                   want)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers never answer a non-CPU tensor with a plain version
+# ---------------------------------------------------------------------------
+
+
+def _meta_state(n=16):
+    return AggState(
+        keys=torch.empty(n, dtype=torch.int64, device="meta"),
+        count=torch.empty(n, dtype=torch.int32, device="meta"),
+        sum=torch.empty((n, 1), dtype=torch.float32, device="meta"),
+        min=torch.empty((n, 0), dtype=torch.float32, device="meta"),
+        max=torch.empty((n, 0), dtype=torch.float32, device="meta"),
+        key_dtype=np.dtype(np.uint32),
+    )
+
+
+@pytest.mark.parametrize("call", [
+    lambda s: ops.argsort_keys(s.keys),
+    lambda s: ops.segmented_combine(s),
+    lambda s: ops.merge_absorb_sorted(s, s),
+], ids=["argsort", "segmented_combine", "merge_absorb"])
+def test_wrappers_take_the_kernel_path_off_the_cpu(call):
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        call(_meta_state())
+    assert ops.LAUNCHES == before
