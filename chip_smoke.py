@@ -7,11 +7,11 @@ of JAX or of the JAX package ``repro``.  Phases (any failure ends the run
 with a non-zero exit):
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` for sm_90a;
-2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (u32- and u64-mapped keys, interior EMPTY rows and
-   duplicates, unequal merge lengths, both ``assume_unique`` settings) and
-   time kernel, plain version and, where one exists, the PyTorch library
-   call computing the same function;
+2. hold each kernel against its plain PyTorch version on the card on
+   seeded edge cases (u32- and u64-mapped keys, interior EMPTY rows and
+   duplicates, unequal merge lengths, both ``assume_unique`` settings,
+   1- and 4-wide sum planes; the probe's EMPTY tails, hits at the right
+   side's ends, keys above it, empty sides);
 3. the main path: ``repro_torch.aggregate`` of TPC-H ``lineitem`` at SF 10
    grouped by ``l_orderkey`` (Q18's inner aggregate: count and sum of
    ``l_quantity``), checked exactly against a NumPy oracle, with every
@@ -19,13 +19,30 @@ with a non-zero exit):
 4. the u64 path: ``lineitem`` at SF 1 grouped by (``l_partkey``,
    ``l_suppkey``) with SF-10 widths (38 bits), Q20's sum of quantity;
 5. SpillStats parity: one spilling input through the card and through the
-   port's plain CPU path must give equal relations and ``SpillStats``.
+   port's plain CPU path must give equal relations and ``SpillStats``;
+6. the join path at SF 10 (u32): TPC-H ``orders`` made from the seed,
+   ``O = aggregate(orders by o_orderkey, sum o_totalprice)`` merge-joined
+   with phase 3's result (Q18's join, 15 M matches), Q4's semi and anti
+   joins of the orders of one quarter with the orders that have a line
+   committed before it was received, and Q18's join again as one mixed
+   sort of both tables (``core.join.join_aggregate``), each against NumPy;
+7. the composed pipeline at SF-10 widths (u64): phase 4's aggregate
+   merge-joined with SF-1 ``partsupp`` and rolled up to ``partkey`` and
+   the grand total with ``repro_torch.pipeline``, against NumPy.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+Every path counts its kernels' launches from zero and fails if one of its
+kernels was never launched.  While a path runs, the script also copies
+the first inputs of every shape it gives each kernel (``capture``); after
+it, each kernel must equal its plain version on every one of them, and
+the kernels are timed beside their plain versions and library calls on
+the inputs of the shape that carried most rows through them (``settle``):
+the aggregate kernels on phase 3's, the probe on phase 6's, with the
+join paths' times beside.  The last lines are the kernels' JSON record,
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -43,6 +60,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
 MAIN_CFG = dict(memory_rows=1 << 20, batch_rows=1 << 16, page_rows=1 << 14, fanin=16)
 SPILL_CFG = dict(memory_rows=1 << 14, batch_rows=1 << 12, page_rows=1 << 10, fanin=4)
+AGG_KERNELS = ("argsort", "segmented_combine", "merge_absorb")
+KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
+    "argsort": ("src/repro_torch/kernels/csrc/argsort.cu", "src/repro/kernels/bitonic_sort.py:91"),
+    "segmented_combine": ("src/repro_torch/kernels/csrc/segmented_combine.cu",
+                          "src/repro/kernels/segmented_reduce.py:115"),
+    "merge_absorb": ("src/repro_torch/kernels/csrc/merge_path.cu",
+                     "src/repro/kernels/merge_path.py:112"),
+    "join_probe": ("src/repro_torch/kernels/csrc/join_probe.cu",
+                   "src/repro/kernels/merge_path.py:193"),
+}
+Q4_DAYS = (547, 639)  # [1993-07-01, 1993-10-01) in days after 1992-01-01
 
 
 def log(msg: str) -> None:
@@ -141,7 +169,9 @@ def make_state(rng, n, key_dtype, domain, empty_frac, widths, *, sort=True, dedu
 
 def state_diff(name: str, a, b) -> float:
     """Raise unless keys and counts are equal; the max |difference| of the
-    float planes, which must be 0 on integer-valued payloads."""
+    float planes, which must be 0: on every input the script holds a
+    kernel to, the payloads are integer-valued with sums below 2^24 or
+    one value per key, so any order of addition is exact."""
     import torch
 
     if not (torch.equal(a.keys, b.keys) and torch.equal(a.count, b.count)):
@@ -162,85 +192,232 @@ def row_bytes(state) -> int:
     return 8 + 4 + 4 * sum(state.widths)
 
 
-def check_kernels(dev, B: int, M: int, P: int) -> list[dict]:
+def check_kernels(dev, B: int, M: int, P: int) -> None:
+    """Edge cases on seeded inputs: interior EMPTY rows, duplicates, one
+    group spanning a batch, u32- and u64-mapped keys, the merge lengths of
+    replacement selection and of the wide merge."""
     import torch
 
     from repro_torch.kernels import bitonic_sort, merge_path, segmented_reduce
 
     rng = np.random.default_rng(SEED)
-    out = []
-
-    # argsort: a batch of B keys, interior EMPTY rows, duplicates
-    cases = [(kd, make_state(rng, B, kd, B // 4, 0.2, (0, 0, 0), sort=False, device=dev).keys)
-             for kd in (np.uint32, np.uint64)]
-    for kd, keys in cases:
+    for kd in (np.uint32, np.uint64):
+        keys = make_state(rng, B, kd, B // 4, 0.2, (0, 0, 0), sort=False, device=dev).keys
         if not torch.equal(bitonic_sort.argsort_cuda(keys), bitonic_sort.argsort_plain(keys)):
             raise SystemExit(f"FAIL argsort {np.dtype(kd)}: permutation differs")
-    keys = cases[0][1]
-    b_ms, b_by = bound(12 * B, B * math.log2(B))
-    out.append(dict(
-        name="argsort", route="cuda", source="src/repro_torch/kernels/csrc/argsort.cu",
-        replaces="src/repro/kernels/bitonic_sort.py:91", shape=[B], max_abs_err=0.0,
-        ms=cuda_ms(lambda: bitonic_sort.argsort_cuda(keys), 50),
-        plain_ms=cuda_ms(lambda: bitonic_sort.argsort_plain(keys), 50),
-        library_ms=cuda_ms(lambda: torch.argsort(keys, stable=True), 50),
-        bound_ms=b_ms, bound_by=b_by,
-    ))
-    log(f"argsort ok: {out[-1]}")
-
-    # segmented combine: a sorted batch of B rows, several plane layouts
-    err = 0.0
     for kd in (np.uint32, np.uint64):
-        for widths in ((1, 0, 0), (2, 2, 2), (0, 0, 0)):
+        for widths in ((1, 0, 0), (2, 2, 2), (0, 0, 0), (4, 0, 0)):
             st = make_state(rng, B, kd, B // 8, 0.1, widths, device=dev)
-            err = max(err, state_diff(f"segmented_combine {np.dtype(kd)} {widths}",
-                                      segmented_reduce.segmented_combine_cuda(st),
-                                      segmented_reduce.segmented_combine_plain(st)))
+            state_diff(f"segmented_combine {np.dtype(kd)} {widths}",
+                       segmented_reduce.segmented_combine_cuda(st),
+                       segmented_reduce.segmented_combine_plain(st))
     skew = make_state(rng, B, np.uint32, 1, 0.0, (1, 1, 1), device=dev)  # one group spans all
-    err = max(err, state_diff("segmented_combine skew",
-                              segmented_reduce.segmented_combine_cuda(skew),
-                              segmented_reduce.segmented_combine_plain(skew)))
-    st = make_state(rng, B, np.uint32, B // 8, 0.1, (1, 0, 0), device=dev)
-    rb = row_bytes(st)
-    b_ms, b_by = bound(2 * B * rb, B * (1 + sum(st.widths)))
-    out.append(dict(
-        name="segmented_combine", route="cuda",
-        source="src/repro_torch/kernels/csrc/segmented_combine.cu",
-        replaces="src/repro/kernels/segmented_reduce.py:115", shape=[B], max_abs_err=err,
-        ms=cuda_ms(lambda: segmented_reduce.segmented_combine_cuda(st), 50),
-        plain_ms=cuda_ms(lambda: segmented_reduce.segmented_combine_plain(st), 50),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-    ))
-    log(f"segmented_combine ok: {out[-1]}")
-
-    # merge-absorb: replacement selection's (M+2B)+B and the wide merge's
-    # (M+P)+P page absorb; tables half to fully occupied
-    err = 0.0
-    timed = []
+    state_diff("segmented_combine skew", segmented_reduce.segmented_combine_cuda(skew),
+               segmented_reduce.segmented_combine_plain(skew))
     for na, nb, fill in ((M + 2 * B, B, 0.15), (M + P, P, 0.5)):
         for kd in (np.uint32, np.uint64):
             for uniq in (False, True):
-                a = make_state(rng, na, kd, 4 * na, fill, (1, 0, 0), dedup=True, device=dev)
-                b = make_state(rng, nb, kd, 4 * na, 0.1, (1, 0, 0), dedup=uniq, device=dev)
-                err = max(err, state_diff(
-                    f"merge_absorb {na}+{nb} {np.dtype(kd)} unique={uniq}",
-                    merge_path.merge_absorb_cuda(a, b, assume_unique=uniq),
-                    merge_path.merge_absorb_plain(a, b, assume_unique=uniq)))
-        rb = row_bytes(a)
-        b_ms, b_by = bound(2 * (na + nb) * rb, (na + nb) * (math.log2(na) + 1 + sum(a.widths)))
-        timed.append(dict(
-            shape=[na, nb],
-            ms=cuda_ms(lambda: merge_path.merge_absorb_cuda(a, b), 20),
-            plain_ms=cuda_ms(lambda: merge_path.merge_absorb_plain(a, b), 20),
-            bound_ms=b_ms, bound_by=b_by,
-        ))
-    out.append(dict(
-        name="merge_absorb", route="cuda", source="src/repro_torch/kernels/csrc/merge_path.cu",
-        replaces="src/repro/kernels/merge_path.py:112", max_abs_err=err, library_ms=None,
-        **timed[0], other_shapes=timed[1:],
-    ))
-    log(f"merge_absorb ok: {out[-1]}")
+                for widths in ((1, 0, 0), (4, 0, 0)):
+                    a = make_state(rng, na, kd, 4 * na, fill, widths, dedup=True, device=dev)
+                    b = make_state(rng, nb, kd, 4 * na, 0.1, widths, dedup=uniq, device=dev)
+                    state_diff(f"merge_absorb {na}+{nb} {np.dtype(kd)} {widths} unique={uniq}",
+                               merge_path.merge_absorb_cuda(a, b, assume_unique=uniq),
+                               merge_path.merge_absorb_plain(a, b, assume_unique=uniq))
+    check_probe(dev, rng)
+    log("kernels ok on the edge cases")
+
+
+def probe_keys(rng, n, m, key_dtype, device):
+    """Sorted, duplicate-free key vectors with EMPTY tails: ``b`` holds
+    ``m`` valid keys; ``a`` about ``n``, among them b's first and last key
+    and one key above all of b's."""
+    from repro_torch.core.types import keys_to_torch
+
+    domain = 4 * max(n, m, 1)
+    b = np.unique(rng.integers(1, domain, m))[:m]
+    a = np.unique(rng.integers(0, domain, n))
+    if n:
+        extra = [domain + 7] + ([b[0], b[-1]] if b.size else [])
+        a = np.unique(np.concatenate([a[: max(n - 3, 0)], extra]))
+    out = []
+    for k in (a, b):
+        k = k.astype(np.uint64)
+        if np.dtype(key_dtype) == np.uint64:  # spread over both halves of the u64 domain
+            k = k * np.uint64(0x9E3779B97F4A7C15 // (domain + 8))
+        tail = np.full(k.size // 8 + (k.size > 0), np.iinfo(key_dtype).max, np.uint64)
+        out.append(keys_to_torch(np.concatenate([k, tail]).astype(key_dtype), device))
     return out
+
+
+def check_probe(dev, rng) -> None:
+    """The probe kernel must equal its plain version exactly, on ``pos`` and
+    ``hit``, in every edge case."""
+    import torch
+
+    from repro_torch.core.types import empty_key
+    from repro_torch.kernels import merge_path
+
+    for kd in (np.uint32, np.uint64):
+        empty = empty_key(kd)
+        for n, m in ((0, 100), (100, 0), (0, 0), (1, 1), (2, 1), (5000, 1200), (1200, 5000),
+                     (1 << 20, 3 << 20)):
+            a, b = probe_keys(rng, n, m, kd, dev)
+            pos, hit = merge_path.join_probe_cuda(a, b, empty)
+            want_pos, want_hit = merge_path.join_probe_plain(a, b, empty)
+            if not (torch.equal(pos, want_pos) and torch.equal(hit, want_hit)):
+                raise SystemExit(f"FAIL join_probe {np.dtype(kd)} n={n} m={m}: differs from "
+                                 "the plain version")
+            if n and int(hit.sum()) < min(2, m):
+                raise SystemExit(f"FAIL join_probe {np.dtype(kd)} n={n} m={m}: the first and "
+                                 "last right keys did not hit")
+
+
+# ---------------------------------------------------------------------------
+# every path: each kernel against its plain version on the inputs the path
+# gave it, and the kernels' times there
+# ---------------------------------------------------------------------------
+
+
+def _kernel_table():
+    """name -> (module, launch function, plain function, signature of a
+    call, copy of a call's inputs)."""
+    import torch
+
+    from repro_torch.kernels import bitonic_sort, merge_path, segmented_reduce
+
+    def copy(s):
+        return s.map(torch.clone)
+
+    return {
+        "argsort": (bitonic_sort, "argsort_cuda", "argsort_plain",
+                    lambda k: (k.shape[0],), lambda k: ((k.clone(),), {})),
+        "segmented_combine": (segmented_reduce, "segmented_combine_cuda",
+                              "segmented_combine_plain",
+                              lambda s: (s.capacity, s.widths), lambda s: ((copy(s),), {})),
+        "merge_absorb": (merge_path, "merge_absorb_cuda", "merge_absorb_plain",
+                         lambda a, b, assume_unique=False: (a.capacity, b.capacity, a.widths,
+                                                            assume_unique),
+                         lambda a, b, assume_unique=False: ((copy(a), copy(b)),
+                                                            {"assume_unique": assume_unique})),
+        "join_probe": (merge_path, "join_probe_cuda", "join_probe_plain",
+                       lambda a, b, empty: (a.shape[0], b.shape[0]),
+                       lambda a, b, empty: ((a.clone(), b.clone(), empty), {})),
+    }
+
+
+CAPTURED: dict[str, dict] = {}  # path -> kernel -> {signature: [calls, (args, kwargs)]}
+
+
+@contextlib.contextmanager
+def capture(path: str):
+    """While a path runs, note every call of each kernel's launch function:
+    how many calls came with each signature (shapes, plane widths), and a
+    copy of the first call's inputs of each.  Counts nothing: the launch
+    counts stay with ``ops``."""
+    seen = CAPTURED.setdefault(path, {})
+    table = _kernel_table()
+    saved = []
+    for name, (mod, launch, _, sig, snap) in table.items():
+        orig = getattr(mod, launch)
+
+        def tap(*args, _orig=orig, _sig=sig, _snap=snap, _seen=seen.setdefault(name, {}),
+                **kw):
+            key = _sig(*args, **kw)
+            if key not in _seen:
+                _seen[key] = [0, _snap(*args, **kw)]
+            _seen[key][0] += 1
+            return _orig(*args, **kw)
+
+        saved.append((mod, launch, orig))
+        setattr(mod, launch, tap)
+    try:
+        yield
+    finally:
+        for mod, launch, orig in saved:
+            setattr(mod, launch, orig)
+
+
+def _compare(name: str, args, kw) -> float:
+    import torch
+
+    mod, launch, plain, _, _ = _kernel_table()[name]
+    got, want = getattr(mod, launch)(*args, **kw), getattr(mod, plain)(*args, **kw)
+    if name in ("argsort", "join_probe"):
+        same = (torch.equal(got, want) if name == "argsort"
+                else all(torch.equal(x, y) for x, y in zip(got, want)))
+        if not same:
+            raise SystemExit(f"FAIL {name}: differs from the plain version")
+        return 0.0
+    return state_diff(name, got, want)
+
+
+MAX_ERR: dict[str, float] = {}
+TIMES: dict[str, dict[str, dict]] = {}  # path -> kernel -> times
+
+
+def settle(path: str, timed_kernels=()) -> None:
+    """Hold each kernel of the path against its plain version on the copied
+    inputs of every signature the path gave it, time ``timed_kernels``
+    (:func:`time_kernel`), then drop the copies."""
+    for name, sigs in CAPTURED[path].items():
+        for key, (calls, (args, kw)) in sigs.items():
+            err = _compare(name, args, kw)
+            MAX_ERR[name] = max(MAX_ERR.get(name, 0.0), err)
+            log(f"{path}: {name} {list(key)} x{calls} equals its plain version "
+                f"(max |diff| {err})")
+    for name in timed_kernels:
+        if not CAPTURED[path].get(name):
+            raise SystemExit(f"FAIL {path}: kernel {name} was never launched")
+        TIMES.setdefault(path, {})[name] = time_kernel(name, path)
+        log(f"{path}: {name} timed: {json.dumps(TIMES[path][name])}")
+    for sigs in CAPTURED[path].values():
+        for entry in sigs.values():
+            entry[1] = None
+
+
+def _bound(name: str, args) -> tuple[float, str]:
+    """Bytes each input read once and each output written once, over the
+    memory rate; operations over the 32-bit rate; the larger."""
+    if name == "argsort":
+        n = args[0].shape[0]
+        return bound(12 * n, n * math.log2(max(n, 2)))
+    if name == "segmented_combine":
+        st = args[0]
+        n = st.capacity
+        return bound(2 * n * row_bytes(st), n * (1 + sum(st.widths)))
+    if name == "merge_absorb":
+        a, b = args
+        n = a.capacity + b.capacity
+        return bound(2 * n * row_bytes(a), n * (math.log2(max(a.capacity, 2)) + 1 +
+                                                sum(a.widths)))
+    a, b = args[0].shape[0], args[1].shape[0]
+    return bound(8 * a + 8 * b + 5 * a, a * math.ceil(math.log2(b + 1)))
+
+
+def time_kernel(name: str, path: str) -> dict:
+    """Kernel, plain version and library call timed on the copied inputs of
+    the signature that carried the most rows through the kernel on the
+    path: calls times input rows (the probe's left rows, one thread each)."""
+    import torch
+
+    sigs = CAPTURED[path][name]
+
+    def rows(k):
+        return k[0] if name == "join_probe" else sum(x for x in k if type(x) is int)
+
+    key = max(sigs, key=lambda k: (sigs[k][0] * rows(k), k))
+    calls, (args, kw) = sigs[key]
+    mod, launch, plain, _, _ = _kernel_table()[name]
+    library = {"argsort": lambda: torch.argsort(args[0], stable=True),
+               "join_probe": lambda: torch.searchsorted(args[1], args[0])}.get(name)
+    b_ms, b_by = _bound(name, args)
+    return dict(
+        path=path, shape=list(key), calls_at_shape=calls,
+        ms=cuda_ms(lambda: getattr(mod, launch)(*args, **kw), 20),
+        plain_ms=cuda_ms(lambda: getattr(mod, plain)(*args, **kw), 20),
+        library_ms=cuda_ms(library, 20) if library else None,
+        bound_ms=b_ms, bound_by=b_by,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -261,11 +438,12 @@ def main_path(dev, rows, ordered) -> dict:
     ops.reset_launch_counts()
     SYNCS["host_syncs"] = 0
     t0 = time.perf_counter()
-    res = repro_torch.aggregate(
-        {"orderkey": rows["orderkey"]}, by=repro_torch.KeySpec.of(orderkey=26),
-        values=rows["quantity"], aggs=("count", "sum"), cfg=cfg, device=dev,
-    )
-    torch.cuda.synchronize()
+    with capture("aggregate"):
+        res = repro_torch.aggregate(
+            {"orderkey": rows["orderkey"]}, by=repro_torch.KeySpec.of(orderkey=26),
+            values=rows["quantity"], aggs=("count", "sum"), cfg=cfg, device=dev,
+        )
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     host_syncs = SYNCS["host_syncs"]
@@ -276,41 +454,53 @@ def main_path(dev, rows, ordered) -> dict:
     check_equal("Q18 counts", rel["count"], cnt)
     check_equal("Q18 sums", rel["sum"][:, 0].astype(np.float64), sums)
     n = rows["orderkey"].size
-    for k, v in launches.items():
-        if v <= 0:
-            raise SystemExit(f"FAIL main path: kernel {k} was never launched")
+    require_launches("main path", launches, AGG_KERNELS)
     info = dict(rows=n, groups=int(uk.size), wall_s=wall, rows_per_s=n / wall,
                 launches=launches, host_syncs=host_syncs, max_memory_allocated=peak,
                 stats=res.stats.as_dict())
     log(f"main path ok: {json.dumps(info)}")
-    return info
+    return info, res, (uk, cnt, sums)
 
 
-def u64_path(dev, rng) -> None:
+def require_launches(path: str, launches: dict, kernels) -> None:
+    for k in kernels:
+        if launches[k] <= 0:
+            raise SystemExit(f"FAIL {path}: kernel {k} was never launched")
+
+
+def require_on_card(path: str, result) -> None:
+    if result.plan["backend"] != "cuda" or result.state.device.type != "cuda":
+        raise SystemExit(f"FAIL {path}: ran on {result.plan['backend']} / "
+                         f"{result.state.device}")
+
+
+def u64_path(dev, rng, sf=1):
     import torch
 
     import repro_torch
 
-    rows, _ = lineitem(1, rng, part_supp=True)
+    rows, _ = lineitem(sf, rng, part_supp=True)
     by = repro_torch.KeySpec.of(partkey=21, suppkey=17)
     t0 = time.perf_counter()
-    res = repro_torch.aggregate(
-        {"partkey": rows["partkey"], "suppkey": rows["suppkey"]}, by=by,
-        values=rows["quantity"], aggs=("sum",), cfg=repro_torch.ExecConfig(**MAIN_CFG),
-        device=dev,
-    )
-    torch.cuda.synchronize()
+    with capture("u64 aggregate"):
+        res = repro_torch.aggregate(
+            {"partkey": rows["partkey"], "suppkey": rows["suppkey"]}, by=by,
+            values=rows["quantity"], aggs=("sum",), cfg=repro_torch.ExecConfig(**MAIN_CFG),
+            device=dev,
+        )
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if res.state.key_dtype != np.uint64:
         raise SystemExit(f"FAIL u64 path: key dtype {res.state.key_dtype}")
     rel = res.relation()
     packed = by.pack({"partkey": rows["partkey"], "suppkey": rows["suppkey"]})
-    uk, _, sums = oracle(packed, rows["quantity"])
+    uk, cnt, sums = oracle(packed, rows["quantity"])
     check_equal("Q20 keys", by.pack({"partkey": rel["partkey"], "suppkey": rel["suppkey"]}), uk)
     check_equal("Q20 sums", rel["sum"][:, 0].astype(np.float64), sums)
     info = dict(rows=int(packed.size), groups=int(uk.size), wall_s=wall,
                 stats=res.stats.as_dict())
     log(f"u64 path ok: {json.dumps(info)}")
+    return res, (uk, cnt, sums)
 
 
 def spill_parity(dev, rows) -> None:
@@ -323,8 +513,9 @@ def spill_parity(dev, rows) -> None:
     got = {}
     for d in (dev, "cpu"):
         t0 = time.perf_counter()
-        state, stats = pipeline.insort_aggregate_device(
-            keys, qty, cfg, output_estimate=n, device=d)
+        with capture("spill parity"):
+            state, stats = pipeline.insort_aggregate_device(
+                keys, qty, cfg, output_estimate=n, device=d)
         got[d] = (state_to_numpy(state), stats.as_dict(), time.perf_counter() - t0)
     (sa, da, ta), (sb, db, tb) = got[dev], got["cpu"]
     for f in sa:
@@ -335,6 +526,198 @@ def spill_parity(dev, rows) -> None:
         raise SystemExit(f"FAIL spill parity: the input did not spill through pre-merge: {da}")
     info = dict(rows=n, stats=da, card_s=ta, cpu_s=tb)
     log(f"spill parity ok: {json.dumps(info)}")
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the order-consuming join path
+# ---------------------------------------------------------------------------
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def join_path(dev, L, q18, lines, rng, sf=10) -> dict:
+    """TPC-H ``orders`` at SF 10 (spec §4.2.3): the sparse keys of
+    ``lineitem``, ``o_orderdate`` uniform over days 0..2405 after
+    1992-01-01, a seeded float32 ``o_totalprice``.  Per line, ship = order
+    + s, commit = order + c, receipt = ship + r with s ~ U[1,121], c ~
+    U[30,90], r ~ U[1,30], so ``l_commitdate < l_receiptdate`` exactly when
+    c < s + r."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.join import join_aggregate
+    from repro_torch.core.types import keys_to_numpy
+    from repro_torch.kernels import ops
+
+    by = repro_torch.KeySpec.of(orderkey=26)
+    cfg = repro_torch.ExecConfig(**MAIN_CFG)
+    i = np.arange(int(1_500_000 * sf), dtype=np.int64)
+    okey = ((i // 8) * 32 + (i % 8) + 1).astype(np.uint32)
+    odate = rng.integers(0, 2406, okey.size).astype(np.int16)
+    price = (rng.integers(90_000, 50_000_000, okey.size) / 100).astype(np.float32)
+    perm = rng.permutation(okey.size)
+    n = lines["orderkey"].size
+    s, c, r = (rng.integers(lo, hi + 1, n, dtype=np.int16)
+               for lo, hi in ((1, 121), (30, 90), (1, 30)))
+    late = c < s + r
+    in_q = (odate[perm] >= Q4_DAYS[0]) & (odate[perm] < Q4_DAYS[1])
+
+    def agg(keys, values=None, aggs=("count",)):
+        return repro_torch.aggregate({"orderkey": keys}, by=by, values=values, aggs=aggs,
+                                     cfg=cfg, device=dev)
+
+    with capture("join inputs"):
+        (O, W, C), agg_s = timed(lambda: (agg(okey[perm], price[perm], ("sum",)),
+                                          agg(okey[perm][in_q]), agg(lines["orderkey"][late])))
+    ops.reset_launch_counts()
+    with capture("merge_join"):
+        J, inner_s = timed(lambda: O.merge_join(L))
+        semi, semi_s = timed(lambda: W.merge_join(C, how="semi"))
+        anti, anti_s = timed(lambda: W.merge_join(C, how="anti"))
+    launches = dict(ops.LAUNCHES)
+    require_launches("join path", launches, ("join_probe",))
+    require_on_card("join path", J)
+
+    uk, cnt, sums = q18
+    rel = J.relation()
+    check_equal("Q18 join keys", rel["orderkey"], uk)
+    check_equal("Q18 join count_right", rel["count_right"], cnt)
+    check_equal("Q18 join sum_right", rel["sum_right"][:, 0].astype(np.float64), sums)
+    check_equal("Q18 join sum_left", rel["sum_left"][:, 0], price)
+    check_equal("Q18 join_count", rel["join_count"], cnt.astype(np.float32))
+    present = np.zeros(int(okey[-1]) + 1, dtype=bool)
+    present[lines["orderkey"][late]] = True
+    wkeys = np.sort(okey[perm][in_q])
+    got_semi, got_anti = semi.relation()["orderkey"], anti.relation()["orderkey"]
+    check_equal("Q4 semi join", got_semi, wkeys[present[wkeys]])
+    check_equal("Q4 anti join", got_anti, wkeys[~present[wkeys]])
+    if np.intersect1d(got_semi, got_anti).size or got_anti.size == 0:
+        raise SystemExit("FAIL Q4: semi and anti joins overlap, or the anti join is empty")
+    check_equal("Q4 semi ∪ anti", np.union1d(got_semi, got_anti), W.relation()["orderkey"])
+    del O, W, C, J, semi, anti
+    settle("join inputs")
+    settle("merge_join", ("join_probe",))
+
+    # Q18's join by one mixed sort of orders and lineitem
+    ops.reset_launch_counts()
+    with capture("join_aggregate"):
+        (res, _), mixed_s = timed(lambda: join_aggregate(
+            okey[perm], lines["orderkey"], right_payload=lines["quantity"], by=by, cfg=cfg,
+            device=dev))
+    mixed_launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require_launches("join_aggregate", mixed_launches, AGG_KERNELS)
+    keys = keys_to_numpy(res["keys"], res["key_dtype"])
+    live = keys != np.iinfo(np.uint32).max
+    check_equal("Q18 mixed-sort keys", keys[live], uk)
+    for col, want in (("n_left", np.ones_like(cnt)), ("n_right", cnt), ("join_count", cnt),
+                      ("sum_right_pay", sums)):
+        got = res[col].detach().cpu().numpy()[live]
+        check_equal(f"Q18 mixed-sort {col}", got.reshape(len(uk)).astype(np.float64), want)
+    del res
+    settle("join_aggregate", AGG_KERNELS)
+    info = dict(orders=int(okey.size), q4_orders=int(wkeys.size), late_lines=int(late.sum()),
+                aggregate_s=agg_s, inner_rows=int(rel["orderkey"].size), inner_s=inner_s,
+                semi_rows=int(got_semi.size), semi_s=semi_s, anti_rows=int(got_anti.size),
+                anti_s=anti_s, launches=launches, join_aggregate_rows=int(okey.size + n),
+                join_aggregate_s=mixed_s, join_aggregate_launches=mixed_launches,
+                max_memory_allocated=peak)
+    log(f"join path ok: {json.dumps(info)}")
+    return launches, mixed_launches
+
+
+def pipeline_path(dev, L20, q20, rng, sf=1) -> dict:
+    """SF-1 ``partsupp`` (spec §4.2.3: 4 suppliers a part, ``ps_availqty``
+    ~ U[1,9999]) joined with phase 4's per-(part, supplier) aggregate and
+    rolled up to ``partkey`` and the grand total, in one pipeline."""
+    import repro_torch
+    from repro_torch.kernels import ops
+
+    by = L20.by
+    P, S = int(200_000 * sf), int(10_000 * sf)
+    partkey = np.repeat(np.arange(1, P + 1, dtype=np.int64), 4)
+    j = np.tile(np.arange(4, dtype=np.int64), P)
+    suppkey = (partkey + j * (S // 4 + (partkey - 1) // S)) % S + 1
+    avail = rng.integers(1, 10_000, partkey.size).astype(np.float32)
+    perm = rng.permutation(partkey.size)
+    cols = {"partkey": partkey[perm].astype(np.uint32), "suppkey": suppkey[perm].astype(np.uint32)}
+    with capture("pipeline inputs"):
+        PS = repro_torch.aggregate(cols, by=by, values=avail[perm], aggs=("sum",),
+                                   cfg=repro_torch.ExecConfig(**MAIN_CFG), device=dev)
+    ops.reset_launch_counts()
+    with capture("pipeline"):
+        out, wall = timed(lambda: repro_torch.pipeline(
+            [L20, ("merge_join", {"right": PS}), ("rollup", {"levels": [1, 0]})]))
+    launches = dict(ops.LAUNCHES)
+    require_launches("pipeline", launches, ("join_probe", "segmented_combine"))
+    for tier in out.values():
+        require_on_card("pipeline", tier)
+    want_block = {"stages": ["aggregate", "merge_join[inner]", "rollup"], "source_sorts": 2,
+                  "re_sorts": 0}
+    for names, tier in out.items():
+        if tier.plan["pipeline"] != want_block:
+            raise SystemExit(f"FAIL pipeline plan {names}: {tier.plan['pipeline']}")
+    # oracle: every (part, supplier) of lineitem is a partsupp row
+    uk, lcnt, lsum = q20
+    ps_uk, ps_inv, ps_cnt = np.unique(by.pack({"partkey": partkey, "suppkey": suppkey}),
+                                      return_inverse=True, return_counts=True)
+    at = np.minimum(np.searchsorted(ps_uk, uk), ps_uk.size - 1)
+    check_equal("Q20 keys found in partsupp", ps_uk[at], uk)
+    rcnt = ps_cnt[at]
+    rsum = np.bincount(ps_inv, weights=avail.astype(np.float64))[at]
+    pk = (uk >> np.uint64(by.shift_of("partkey"))).astype(np.int64)
+    upk, inv = np.unique(pk, return_inverse=True)
+    rel = out[("partkey",)].relation()
+    check_equal("pipeline partkey level keys", rel["partkey"], upk)
+    check_equal("pipeline partkey join_count", rel["join_count"].astype(np.float64),
+                np.bincount(inv, weights=lcnt * rcnt))
+    check_equal("pipeline partkey sum_left", rel["sum_left"][:, 0].astype(np.float64),
+                np.bincount(inv, weights=lsum))
+    check_equal("pipeline partkey sum_right", rel["sum_right"][:, 0].astype(np.float64),
+                np.bincount(inv, weights=rsum))
+    total = out[()].relation()
+    check_equal("pipeline total join_count", total["join_count"],
+                np.float32([(lcnt * rcnt).sum()]))
+    # the grand totals of the sums pass 2^24 and round in float32: the repo's
+    # float tolerance, rtol 1e-4
+    for col, want in (("sum_left", lsum.sum()), ("sum_right", rsum.sum())):
+        got = float(total[col][0, 0])
+        if not abs(got - want) <= 1e-4 * abs(want):
+            raise SystemExit(f"FAIL pipeline total {col}: {got} vs {want} (rtol 1e-4)")
+    info = dict(partsupp_rows=int(partkey.size), join_rows=int(uk.size),
+                partkey_groups=int(upk.size), wall_s=wall, launches=launches)
+    log(f"pipeline ok: {json.dumps(info)}")
+    return launches
+
+
+def kernel_records(by_path: dict) -> list[dict]:
+    """The kernels' JSON records: each kernel timed and counted on its own
+    path, the aggregate's (phase 3) for the aggregate kernels, the merge
+    joins' (phase 6) for the probe, with its times on the other paths
+    beside and every shape it was checked at."""
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        path = "merge_join" if name == "join_probe" else "aggregate"
+        t = TIMES[path][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=by_path[path][name], max_abs_err=MAX_ERR[name], max_abs_diff=MAX_ERR[name],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], shape=t["shape"], path=path,
+            other_shapes=[v[name] for p, v in TIMES.items() if p != path and name in v],
+            launches_by_path={p: v[name] for p, v in by_path.items()},
+            checked_shapes={p: [list(k) + [calls] for k, (calls, _) in sigs[name].items()]
+                            for p, sigs in CAPTURED.items() if sigs.get(name)},
+        ))
+    return kernels
 
 
 def card_line() -> str:
@@ -354,7 +737,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.3f} s")
     for name, report in _build.PTXAS_REPORT.items():
@@ -362,21 +745,28 @@ def main() -> int:
             if "Used" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
-    kernels = check_kernels(dev, B=MAIN_CFG["batch_rows"], M=MAIN_CFG["memory_rows"],
-                            P=MAIN_CFG["page_rows"])
+    check_kernels(dev, B=MAIN_CFG["batch_rows"], M=MAIN_CFG["memory_rows"],
+                  P=MAIN_CFG["page_rows"])
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     rows, ordered = lineitem(10, rng, part_supp=False)
     log(f"SF10 lineitem: {rows['orderkey'].size} rows made in {time.perf_counter() - t0:.1f} s")
-    main = main_path(dev, rows, ordered)
-    for k in kernels:
-        k["launches"] = main["launches"][k["name"]]
-        k["launches_main_path"] = k["launches"]
-        k["max_abs_diff"] = k["max_abs_err"]
-    u64_path(dev, rng)
+    main, L, q18 = main_path(dev, rows, ordered)
+    settle("aggregate", AGG_KERNELS)
+    del ordered
+    L20, q20 = u64_path(dev, rng)
+    settle("u64 aggregate")
     spill_parity(dev, rows)
-
+    settle("spill parity")
+    by_path = {"aggregate": main["launches"]}
+    by_path["merge_join"], by_path["join_aggregate"] = join_path(dev, L, q18, rows, rng)
+    del L, rows
+    by_path["pipeline"] = pipeline_path(dev, L20, q20, rng)
+    settle("pipeline inputs")
+    settle("pipeline", ("join_probe", "segmented_combine"))
+    kernels = kernel_records(by_path)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Backend registry of the port (counterpart of :mod:`repro.core.dispatch`).
 
-Two backends provide the engine's three primitives:
+Two backends provide the engine's four primitives:
 
 * ``"torch"`` — the plain PyTorch reference engine
   (:mod:`repro_torch.core.ordered_index`); runs on any device.
@@ -27,15 +27,20 @@ class Backend:
     ``segmented_combine(state) -> state`` — combine adjacent equal keys of
     a key-sorted state; groups compacted to the front, EMPTY-padded.
     ``merge_sorted(a, b, assume_unique=False) -> state`` — linear merge-
-    absorb of two key-sorted states into capacity ``|a| + |b|``."""
+    absorb of two key-sorted states into capacity ``|a| + |b|``.
+    ``join_probe(a_keys, b_keys, empty) -> (pos, hit)`` — the merge join's
+    probe: each sorted ``a`` key's lower bound in the sorted ``b`` keys
+    (int32, clipped into b's rows) and whether it is there (bool)."""
 
     name: str
     argsort: Callable
     segmented_combine: Callable
     merge_sorted: Callable
+    join_probe: Callable
 
 
 def _load_torch() -> Backend:
+    from repro_torch.core import merge_join as mj
     from repro_torch.core import ordered_index as oi
 
     return Backend(
@@ -43,6 +48,7 @@ def _load_torch() -> Backend:
         argsort=oi.argsort_torch,
         segmented_combine=oi.segmented_combine_torch,
         merge_sorted=oi.merge_absorb_torch,
+        join_probe=mj.join_probe_torch,
     )
 
 
@@ -54,6 +60,7 @@ def _load_cuda() -> Backend:
         argsort=ops.argsort_keys,
         segmented_combine=ops.segmented_combine,
         merge_sorted=ops.merge_absorb_sorted,
+        join_probe=ops.join_probe,
     )
 
 

@@ -1,11 +1,15 @@
 """Schema front door of the port (counterpart of :mod:`repro.core.schema`):
 composite keys (:class:`KeySpec`), declarative aggregates
-(:class:`AggSpec`) and the one-shot :func:`aggregate` entry point.
+(:class:`AggSpec`), the one-shot :func:`aggregate` entry point, and the
+operators that consume its key order: :meth:`AggResult.merge_join`
+(→ :class:`JoinResult`), :meth:`AggResult.rollup`,
+:meth:`JoinResult.rollup`, the module-level :func:`rollup` and
+:func:`pipeline`.
 
-``KeySpec.pack``/``unpack`` are NumPy code copied from the reference, so
-the port imports nothing of it.  Only one-shot input with the in-sort
-algorithm on the device pipeline is ported; streamed input, the hash
-baselines, joins, rollup and the mesh wait in ROADMAP.
+``KeySpec.pack``/``unpack``/``shift_of``/``prefix`` are NumPy code copied
+from the reference, so the port imports nothing of it.  Only one-shot
+input with the in-sort algorithm on the device pipeline is ported;
+streamed input, the hash baselines and the mesh wait in ROADMAP.
 """
 from __future__ import annotations
 
@@ -18,13 +22,17 @@ import torch
 
 from repro_torch.core import cost_model, dispatch, sorted_ops
 from repro_torch.core import insort as insort_mod
+from repro_torch.core import merge_join as mj_mod
 from repro_torch.core.types import (
+    INT64_MIN,
     AggState,
     ExecConfig,
     SpillStats,
+    host_ints,
     key_dtype_for_bits,
     keys_to_numpy,
     resolve_device,
+    zero_key,
 )
 
 _EMPTY_NP = {
@@ -105,6 +113,21 @@ class KeySpec:
     @property
     def empty(self) -> np.unsignedinteger:
         return _EMPTY_NP[self.key_dtype]
+
+    def shift_of(self, name: str) -> int:
+        """Bit position of a column's least-significant bit in the packed key."""
+        shift = 0
+        for c in reversed(self.columns):
+            if c.name == name:
+                return shift
+            shift += c.bits
+        raise KeyError(f"no key column {name!r} in {self.names}")
+
+    def prefix(self, n: int) -> "KeySpec":
+        """The KeySpec of the first (most significant) ``n`` columns."""
+        if not 1 <= n <= len(self.columns):
+            raise ValueError(f"prefix length {n} not in [1, {len(self.columns)}]")
+        return KeySpec(self.columns[:n])
 
     # -- packing ---------------------------------------------------------
     def _as_columns(self, columns) -> list[np.ndarray]:
@@ -224,25 +247,301 @@ class AggResult:
     aggs: AggSpec
     plan: dict[str, Any]
 
+    def occupancy(self) -> int:
+        return host_ints(self.state.occupancy())[0]
+
     def relation(self) -> dict[str, np.ndarray]:
         """Named key columns + aggregate columns as NumPy arrays, padding
-        removed, rows sorted by the composite key (major column first)."""
-        keys = keys_to_numpy(self.state.keys, self.state.key_dtype)
-        mask = keys != _EMPTY_NP[keys.dtype]
+        removed, rows sorted by the composite key (major column first).
+        Masks with the state's sentinel: a rollup level may carry a
+        KeySpec of at most 32 bits over a uint64 state."""
+        keys, mask = _host_keys(self.state)
         out = {n: c[mask] for n, c in self.by.unpack(keys).items()}
         for name, col in self.aggs.finalize(self.state).items():
-            out[name] = col.detach().cpu().numpy()[mask]
+            out[name] = _np(col)[mask]
         return out
 
     @property
     def sorted_by(self) -> dict[str, Any]:
         """The order this relation carries: ascending by the packed key,
-        i.e. lexicographically by every ``by`` column, major first."""
-        return {
-            "columns": self.by.names,
-            "prefix_len": len(self.by.columns),
-            "key_dtype": str(np.dtype(self.by.key_dtype)),
+        i.e. lexicographically by every ``by`` column, major first.
+        :meth:`merge_join` and :meth:`rollup` consume it instead of
+        sorting again."""
+        return _sorted_by(self.by)
+
+    def merge_join(self, other: "AggResult", *, how: str = "inner", backend: str = "auto",
+                   mesh=None, mesh_axis: str | None = None) -> "JoinResult":
+        """Merge join with another aggregated relation, consuming both
+        sides' key order: a probe and a compaction gather, no sort.
+
+        ``how``: ``"inner"`` (aligned per-side packets plus the group-join
+        product columns), ``"semi"`` (this side's groups with a match) or
+        ``"anti"`` (those without).  Both sides must pack their keys the
+        same way (same key dtype and column bit layout) and lie on one
+        device.  On a CUDA state ``backend="auto"`` is ``"cuda"``: the
+        probe kernel launches or the call raises."""
+        if mesh is not None or mesh_axis is not None:
+            raise NotImplementedError(
+                "the mesh-sharded merge join is not ported yet (ROADMAP Queue 1 item 11, "
+                "distributed aggregation)")
+        _check_join_compat(self.by, other.by)
+        if self.state.device != other.state.device:
+            raise ValueError(
+                f"join of relations on {self.state.device} and {other.state.device}")
+        backend = dispatch.resolve_backend_name(backend, self.state.device)
+        plan: dict[str, Any] = {
+            "operator": "merge_join",
+            "how": how,
+            "backend": backend,
+            "inputs_sorted": True,
+            "sorted_by": [self.sorted_by, other.sorted_by],
+            "left_plan": self.plan,
+            "right_plan": other.plan,
         }
+        left, right = mj_mod.merge_join(self.state, other.state, how=how, backend=backend)
+        products = _join_products_state(left, right) if how == "inner" else None
+        return JoinResult(
+            left=left, right=right, products=products, by=self.by, left_aggs=self.aggs,
+            right_aggs=other.aggs, stats=SpillStats.reduce_shards([self.stats, other.stats]),
+            plan=plan, how=how,
+        )
+
+    def rollup(self, levels: Sequence[int] | None = None, *,
+               backend: str = "auto") -> dict[tuple[str, ...], "AggResult"]:
+        """Coarser prefix levels peeled from this already-sorted result
+        (§2.2's rollup from one sort): no input re-read, no sort, no
+        spill.  Returns ``{prefix column names: AggResult}`` like the
+        module-level :func:`rollup`."""
+        backend = dispatch.resolve_backend_name(backend, self.state.device)
+        out: dict[tuple[str, ...], AggResult] = {}
+        for names, st, spec in _iter_prefix_levels(self.state, self.by, levels, backend):
+            plan = dict(self.plan)
+            plan["rollup"] = {"level": names, "sorts": 0, "from_order": self.sorted_by}
+            out[names] = AggResult(state=st, stats=self.stats, by=spec, aggs=self.aggs,
+                                   plan=plan)
+        return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _host_keys(state: AggState) -> tuple[np.ndarray, np.ndarray]:
+    """The state's keys as uint32/uint64 host keys, and the valid-row mask
+    by the state's own sentinel."""
+    keys = keys_to_numpy(state.keys, state.key_dtype)
+    return keys, keys != _EMPTY_NP[keys.dtype]
+
+
+def _sorted_by(by: KeySpec) -> dict[str, Any]:
+    return {
+        "columns": by.names,
+        "prefix_len": len(by.columns),
+        "key_dtype": str(np.dtype(by.key_dtype)),
+    }
+
+
+def _check_join_compat(left_by: KeySpec, right_by: KeySpec) -> None:
+    """Joining two relations requires one shared packed key space: the same
+    key dtype and the same column bit layout; anything else raises."""
+    if left_by.key_dtype != right_by.key_dtype:
+        raise TypeError(
+            f"join key dtype mismatch: left packs to {np.dtype(left_by.key_dtype)} "
+            f"({left_by.total_bits} bits, columns {left_by.names}), right to "
+            f"{np.dtype(right_by.key_dtype)} ({right_by.total_bits} bits, columns "
+            f"{right_by.names}) — repack both sides with one KeySpec bit layout"
+        )
+    lb = tuple(c.bits for c in left_by.columns)
+    rb = tuple(c.bits for c in right_by.columns)
+    if lb != rb:
+        raise TypeError(
+            f"join key layout mismatch: left columns {left_by.names} pack as bits {lb}, "
+            f"right columns {right_by.names} as {rb} — equal packed keys would not mean "
+            "equal column values"
+        )
+
+
+def _join_products_state(left: AggState, right: AggState) -> AggState:
+    """The group-join product columns (§2.5) as a state sharing the join's
+    key vector, sum plane = [join_count, Σ_L·|R| (V_L columns), |L|·Σ_R
+    (V_R columns)].  Sums over join pairs add across fine keys, so a
+    rollup combines them exactly along with the per-side packets."""
+    prods = mj_mod.group_join_products(left, right)
+    plane = torch.cat([prods["join_count"][:, None], prods["sum_left_x_count_right"],
+                       prods["count_left_x_sum_right"]], dim=1)
+    none = torch.zeros((left.capacity, 0), dtype=torch.float32, device=left.device)
+    return AggState(keys=left.keys, count=left.count, sum=plane, min=none, max=none,
+                    key_dtype=left.key_dtype)
+
+
+@dataclasses.dataclass
+class JoinResult:
+    """Result of :meth:`AggResult.merge_join`: ``left`` and ``right`` are the
+    per-side aggregate packets aligned on one sorted key vector (``right``
+    is None for semi/anti joins); ``products`` carries the §2.5 group-join
+    product columns as sum planes (inner joins only).  The result is itself
+    key-sorted, so :meth:`rollup` peels prefix levels from it with
+    segmented combines and no sort."""
+
+    left: AggState
+    right: AggState | None
+    products: AggState | None
+    by: KeySpec
+    left_aggs: AggSpec
+    right_aggs: AggSpec
+    stats: SpillStats
+    plan: dict[str, Any]
+    how: str = "inner"
+
+    @property
+    def state(self) -> AggState:
+        return self.left
+
+    def occupancy(self) -> int:
+        return host_ints(self.left.occupancy())[0]
+
+    @property
+    def sorted_by(self) -> dict[str, Any]:
+        """The join output keeps the inputs' key order."""
+        return _sorted_by(self.by)
+
+    def relation(self) -> dict[str, np.ndarray]:
+        """Key columns + per-side aggregate columns (``*_left`` /
+        ``*_right``) + the group-join product columns (inner joins),
+        padding removed, rows in key order."""
+        keys, mask = _host_keys(self.left)
+        out = {n: c[mask] for n, c in self.by.unpack(keys).items()}
+        for name, col in self.left_aggs.finalize(self.left).items():
+            out[f"{name}_left"] = _np(col)[mask]
+        if self.right is not None:
+            for name, col in self.right_aggs.finalize(self.right).items():
+                out[f"{name}_right"] = _np(col)[mask]
+        if self.products is not None:
+            wl = self.left.sum.shape[1]
+            plane = _np(self.products.sum)[mask]
+            out["join_count"] = plane[:, 0]
+            out["sum_left_x_count_right"] = plane[:, 1: 1 + wl]
+            out["count_left_x_sum_right"] = plane[:, 1 + wl:]
+        return out
+
+    def rollup(self, levels: Sequence[int] | None = None, *,
+               backend: str = "auto") -> dict[tuple[str, ...], "JoinResult"]:
+        """Prefix-level rollup of the join (aggregate → merge join →
+        rollup, from the sources' sorts alone).  Every constituent state
+        shares one key vector, so each peel applies the same segmented
+        combine to every side and the alignment holds; the product planes
+        are sums over join pairs and roll up exactly."""
+        backend = dispatch.resolve_backend_name(backend, self.left.device)
+        parts = [s for s in (self.left, self.right, self.products) if s is not None]
+        peels = [_iter_prefix_levels(s, self.by, levels, backend) for s in parts]
+        out: dict[tuple[str, ...], JoinResult] = {}
+        for tier in zip(*peels):
+            names, st_l, spec = tier[0]
+            st_r = tier[1][1] if self.right is not None else None
+            st_p = tier[-1][1] if self.products is not None else None
+            plan = dict(self.plan)
+            plan["rollup"] = {"level": names, "sorts": 0, "from_order": self.sorted_by}
+            out[names] = JoinResult(
+                left=st_l, right=st_r, products=st_p, by=spec, left_aggs=self.left_aggs,
+                right_aggs=self.right_aggs, stats=self.stats, plan=plan, how=self.how,
+            )
+        return out
+
+
+def pipeline(steps):
+    """Run an order-preserving operator pipeline: one sort per source
+    relation, none between operators.
+
+    ``steps`` is a list; the first entry is the source — an
+    :class:`AggResult` or ``("aggregate", kwargs)`` — and each later entry
+    is ``("merge_join", {"right": <AggResult | ("aggregate", kwargs)>,
+    ...})`` or ``("rollup", {"levels": ...})``.  The result's
+    ``plan["pipeline"]`` records the stages, the source sorts paid and the
+    zero re-sorts the composition guarantees."""
+    if not steps:
+        raise ValueError("pipeline needs at least a source step")
+    sources = 0
+
+    def _source(spec):
+        nonlocal sources
+        if isinstance(spec, AggResult):
+            sources += 1
+            return spec
+        if isinstance(spec, tuple) and len(spec) == 2 and spec[0] == "aggregate":
+            sources += 1
+            return aggregate(**spec[1])
+        raise TypeError(
+            f"pipeline source must be an AggResult or ('aggregate', kwargs), got {spec!r}")
+
+    stages = ["aggregate"]
+    cur = _source(steps[0])
+    for step in steps[1:]:
+        if not (isinstance(step, tuple) and len(step) == 2):
+            raise TypeError(f"pipeline step must be (op, kwargs), got {step!r}")
+        op, kw = step
+        kw = dict(kw)
+        if op == "merge_join":
+            right = _source(kw.pop("right"))
+            cur = cur.merge_join(right, **kw)
+            stages.append(f"merge_join[{cur.how}]")
+        elif op == "rollup":
+            if isinstance(cur, dict):
+                raise TypeError("cannot compose past a rollup fan-out")
+            cur = cur.rollup(**kw)
+            stages.append("rollup")
+        else:
+            raise ValueError(f"unknown pipeline op {op!r}: merge_join|rollup")
+    block = {"stages": stages, "source_sorts": sources, "re_sorts": 0}
+    for r in (cur.values() if isinstance(cur, dict) else (cur,)):
+        r.plan = dict(r.plan)
+        r.plan["pipeline"] = block
+    return cur
+
+
+def _shift_right(keys: torch.Tensor, bits: int, key_dtype) -> torch.Tensor:
+    """Drop the ``bits`` low bits of packed keys, in the keys' own domain.
+    A uint64 key is held with its top bit flipped, and a 64-bit KeySpec
+    sets that bit on valid keys: unmap, shift logically (``>>`` on int64
+    would carry the sign in), then map back into the uint64 domain."""
+    if np.dtype(key_dtype) == np.uint32:
+        return keys >> bits
+    raw = keys ^ INT64_MIN
+    return ((raw >> bits) & ((1 << (64 - bits)) - 1)) ^ INT64_MIN
+
+
+def _iter_prefix_levels(state: AggState, by: KeySpec, levels, backend: str):
+    """Peel minor key columns off a key-sorted state, yielding
+    ``(prefix_names, state, prefix_spec)`` finest level first.  Dropping
+    the least-significant column is a right shift, monotone on the packed
+    key, so every coarser level is one segmented combine of the finer
+    one: no sort, no spill (§2.2).  A level keeps the engine state's key
+    domain whatever its KeySpec's width; the grand total is one group
+    under the domain's zero."""
+    n_cols = len(by.columns)
+    if levels is None:
+        levels = list(range(n_cols, -1, -1))
+    requested = sorted({int(lvl) for lvl in levels}, reverse=True)
+    if not requested or requested[0] > n_cols or requested[-1] < 0:
+        raise ValueError(f"rollup levels {requested} out of range [0, {n_cols}]")
+    spec = by
+    cur = n_cols
+    for lvl in requested:
+        while cur > lvl:
+            if cur == 1:
+                spec = KeySpec((KeyColumn("__all__", 1),))
+                shifted = torch.full_like(state.keys, zero_key(state.key_dtype))
+            else:
+                dropped = spec.columns[-1]
+                spec = KeySpec(spec.columns[:-1])
+                shifted = _shift_right(state.keys, dropped.bits, state.key_dtype)
+            keys2 = torch.where(state.valid(), shifted, state.empty)
+            state = sorted_ops.segmented_combine(
+                AggState(keys2, state.count, state.sum, state.min, state.max,
+                         state.key_dtype),
+                backend=backend,
+            )
+            cur -= 1
+        yield by.names[:lvl], state, spec
 
 
 def _resolve_order_by(order_by, by: KeySpec) -> bool:
@@ -328,3 +627,33 @@ def aggregate(columns, *, by: KeySpec, values=None,
         widths=widths, pipeline=pipeline, device=dev,
     )
     return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# generic rollup: any prefix hierarchy, all levels from one sort
+# ---------------------------------------------------------------------------
+
+
+def rollup(columns, *, by: KeySpec, values=None,
+           aggs: AggSpec | Sequence[str] | str = ("count", "sum"),
+           levels: Sequence[int] | None = None, algorithm: str = "auto",
+           backend: str = "auto", cfg: ExecConfig | None = None,
+           output_estimate: int | None = None, pipeline: str = "device",
+           device="cuda") -> tuple[dict[tuple[str, ...], AggResult], SpillStats]:
+    """``GROUP BY ROLLUP(...)`` over any key hierarchy from one sort (§2.2).
+
+    Aggregates at the full key, then peels minor columns off the sorted
+    output with segmented combines (see :meth:`AggResult.rollup`).
+    ``levels`` selects prefix lengths (default: every prefix plus the
+    grand total, reported as ``()``).  Returns ({prefix column names:
+    AggResult}, stats of the one sort)."""
+    fine = aggregate(
+        columns, by=by, values=values, aggs=aggs, algorithm=algorithm, backend=backend,
+        cfg=cfg, output_estimate=output_estimate, pipeline=pipeline, order_by=True,
+        device=device,
+    )
+    backend = dispatch.resolve_backend_name(backend, fine.state.device)
+    out = {names: AggResult(state=st, stats=fine.stats, by=spec, aggs=fine.aggs,
+                            plan=fine.plan)
+           for names, st, spec in _iter_prefix_levels(fine.state, by, levels, backend)}
+    return out, fine.stats

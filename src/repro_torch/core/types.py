@@ -331,6 +331,23 @@ class SpillStats:
     def total_spill_rows(self) -> int:
         return self.rows_spilled_run_generation + self.rows_spilled_merge
 
+    @classmethod
+    def reduce_shards(cls, shards: "list[SpillStats]") -> "SpillStats":
+        """Combine the accounting of several inputs (a join's two sides):
+        counters add, depth and peak occupancy take the max, flags OR."""
+        if not shards:
+            raise ValueError("reduce_shards needs at least one SpillStats")
+        maxed = {"merge_levels", "max_index_occupancy", "duplicate_rate",
+                 "exchange_quota", "exchange_max_fill"}
+        out = {}
+        for f in dataclasses.fields(cls):
+            vals = [getattr(s, f.name) for s in shards]
+            if f.name == "index_overflowed":
+                out[f.name] = any(vals)
+            else:
+                out[f.name] = max(vals) if f.name in maxed else sum(vals)
+        return cls(**out)
+
     def as_dict(self) -> dict[str, Any]:
         d = dataclasses.asdict(self)
         d["total_spill_rows"] = self.total_spill_rows

@@ -1,15 +1,15 @@
 """The ``"cuda"`` backend's primitives (counterpart of
-:mod:`repro.kernels.ops`): ``argsort_keys``, ``segmented_combine`` and
-``merge_absorb_sorted``.
+:mod:`repro.kernels.ops`): ``argsort_keys``, ``segmented_combine``,
+``merge_absorb_sorted`` and ``join_probe``.
 
 On a CPU tensor each takes its kernel's plain version; on any other
 device it launches the kernel or raises — never a quiet fallback.  Each
 kernel launch made through these wrappers adds one to
 ``LAUNCHES[<kernel>]``, so a run can show that its main path went through
 the kernels.  The reference's ``(T, N)`` tile and uint32-lane plumbing
-(``_state_to_tiles``, ``_plane_to_tile``, ``_key_lanes``) is TPU layout
-and has no counterpart: the kernels take int64 keys and (N, V) planes,
-and width-0 planes stay width 0.
+(``_state_to_tiles``, ``_plane_to_tile``, ``_key_lanes``) and the pow-2
+padding of the probe are TPU layout and have no counterpart: the kernels
+take int64 keys and (N, V) planes, and width-0 planes stay width 0.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.types import AggState
 from repro_torch.kernels import bitonic_sort, merge_path, segmented_reduce
 
-LAUNCHES = {"argsort": 0, "segmented_combine": 0, "merge_absorb": 0}
+LAUNCHES = {"argsort": 0, "segmented_combine": 0, "merge_absorb": 0, "join_probe": 0}
 
 
 def reset_launch_counts() -> None:
@@ -51,4 +51,16 @@ def merge_absorb_sorted(a: AggState, b: AggState, *, assume_unique: bool = False
         return merge_path.merge_absorb_plain(a, b, assume_unique=assume_unique)
     out = merge_path.merge_absorb_cuda(a, b, assume_unique=assume_unique)
     LAUNCHES["merge_absorb"] += 1
+    return out
+
+
+def join_probe(a_keys: torch.Tensor, b_keys: torch.Tensor, empty: int):
+    """Merge-join probe of the sorted ``a_keys`` in the sorted ``b_keys``:
+    ``(pos, hit)`` shaped like ``a_keys``, ``pos`` clipped into b's rows
+    (see :func:`repro_torch.core.merge_join.join_probe`)."""
+    if a_keys.device.type == "cpu":
+        return merge_path.join_probe_plain(a_keys, b_keys, empty)
+    out = merge_path.join_probe_cuda(a_keys, b_keys, empty)
+    if a_keys.shape[0]:
+        LAUNCHES["join_probe"] += 1
     return out

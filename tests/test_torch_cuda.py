@@ -12,9 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch
 from repro_torch.core import ordered_index as oi
 from repro_torch.core import pipeline
-from repro_torch.core.types import ExecConfig, empty_key, rows_to_state, state_to_numpy, take
+from repro_torch.core.types import (
+    ExecConfig,
+    empty_key,
+    keys_to_torch,
+    rows_to_state,
+    state_to_numpy,
+    take,
+)
 from repro_torch.kernels import bitonic_sort, merge_path, ops, segmented_reduce
 
 pytestmark = pytest.mark.cuda
@@ -78,12 +86,51 @@ def test_merge_absorb_kernel_matches_plain(dev, na, nb, assume_unique, key_dtype
                  merge_path.merge_absorb_plain(a, b, assume_unique=assume_unique))
 
 
+def _probe_pair(dev, n, m, key_dtype):
+    """Sorted, duplicate-free key vectors with EMPTY tails: ``b`` holds
+    ``m`` valid keys, ``a`` about ``n`` and shares b's first and last key
+    and one key above all of b's.  ``chip_smoke.py::probe_keys`` makes the
+    same pairs: the script imports nothing of the tests, so it keeps its
+    own copy."""
+    domain = 4 * max(n, m, 1)
+    b = np.unique(RNG.integers(1, domain, m))[:m]
+    a = np.unique(RNG.integers(0, domain, n))
+    if n:
+        extra = [domain + 7] + ([b[0], b[-1]] if b.size else [])
+        a = np.unique(np.concatenate([a[: max(n - 3, 0)], extra]))
+    out = []
+    for k in (a, b):
+        k = k.astype(np.uint64)
+        if key_dtype == np.uint64:  # spread over both halves of the u64 domain
+            k = k * np.uint64(0x9E3779B97F4A7C15 // (domain + 8))
+        k = np.concatenate([k, np.full(k.size // 8 + (k.size > 0), np.iinfo(key_dtype).max,
+                                       np.uint64)]).astype(key_dtype)
+        out.append(keys_to_torch(k, dev))
+    return out
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("n,m", [(0, 50), (50, 0), (0, 0), (1, 1), (3000, 700), (700, 3000),
+                                 (70_000, 200_000)])
+def test_join_probe_kernel_matches_plain(dev, n, m, key_dtype):
+    a, b = _probe_pair(dev, n, m, key_dtype)
+    empty = empty_key(key_dtype)
+    pos, hit = merge_path.join_probe_cuda(a, b, empty)
+    want_pos, want_hit = merge_path.join_probe_plain(a, b, empty)
+    assert pos.dtype == torch.int32 and hit.dtype == torch.bool
+    assert torch.equal(pos, want_pos) and torch.equal(hit, want_hit)
+    if n:  # b's first and last keys hit; a's largest valid key is above all of b's
+        assert int(hit.sum()) >= min(2, m)
+
+
 def test_wrappers_launch_on_cuda_and_count(dev):
     ops.reset_launch_counts()
     st = _state(dev, 1000, np.uint32, 300)
     ops.merge_absorb_sorted(ops.segmented_combine(st), st)
     ops.argsort_keys(st.keys)
-    assert ops.LAUNCHES == {"argsort": 1, "segmented_combine": 1, "merge_absorb": 1}
+    ops.join_probe(st.keys, st.keys, st.empty)
+    assert ops.LAUNCHES == {"argsort": 1, "segmented_combine": 1, "merge_absorb": 1,
+                            "join_probe": 1}
 
 
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
@@ -100,3 +147,39 @@ def test_pipeline_on_the_card_matches_cpu(dev, key_dtype):
     a, b = state_to_numpy(sa), state_to_numpy(sb)
     for f in a:
         np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.mark.parametrize("bits", [dict(region=6, store=8), dict(partkey=21, suppkey=17)],
+                         ids=["u32", "u64"])
+def test_merge_join_and_rollup_on_the_card_match_cpu(dev, bits):
+    spec = repro_torch.KeySpec.of(**bits)
+    names = list(bits)
+    cfg = ExecConfig(memory_rows=512, batch_rows=128, page_rows=64, fanin=4)
+
+    def relation(seed, lo, hi, d):
+        r = np.random.default_rng(seed)
+        cols = {names[0]: r.integers(0, 40, 5000), names[1]: r.integers(lo, hi, 5000)}
+        vals = r.integers(0, 50, 5000).astype(np.float32)
+        return repro_torch.aggregate(cols, by=spec, values=vals, aggs=("count", "sum"),
+                                     cfg=cfg, device=d)
+
+    got = {}
+    for d in (dev, "cpu"):
+        ops.reset_launch_counts()
+        L, R = relation(1, 0, 60, d), relation(2, 30, 90, d)
+        J = L.merge_join(R)
+        out = {"inner": J.relation(), "semi": L.merge_join(R, how="semi").relation(),
+               "anti": L.merge_join(R, how="anti").relation()}
+        for level, tier in J.rollup().items():
+            out[level] = tier.relation()
+        got[d] = (out, J.stats.as_dict(), dict(ops.LAUNCHES))
+    (a, sa, la), (b, sb, lb) = got[dev], got["cpu"]
+    assert sa == sb
+    assert la["join_probe"] == 3 and la["segmented_combine"] > 0
+    assert lb == {k: 0 for k in lb}
+    assert list(a) == list(b)
+    for k in a:
+        assert list(a[k]) == list(b[k]), k
+        for c in a[k]:
+            np.testing.assert_array_equal(a[k][c], b[k][c], err_msg=f"{k}: {c}")
+    assert a["inner"]["join_count"].size > 0 and a["anti"]["count_left"].size > 0

@@ -177,7 +177,8 @@ def _meta_state(n=16):
     lambda s: ops.argsort_keys(s.keys),
     lambda s: ops.segmented_combine(s),
     lambda s: ops.merge_absorb_sorted(s, s),
-], ids=["argsort", "segmented_combine", "merge_absorb"])
+    lambda s: ops.join_probe(s.keys, s.keys, s.empty),
+], ids=["argsort", "segmented_combine", "merge_absorb", "join_probe"])
 def test_wrappers_take_the_kernel_path_off_the_cpu(call):
     before = dict(ops.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
