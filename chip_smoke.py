@@ -28,7 +28,23 @@ with a non-zero exit):
    sort of both tables (``core.join.join_aggregate``), each against NumPy;
 7. the composed pipeline at SF-10 widths (u64): phase 4's aggregate
    merge-joined with SF-1 ``partsupp`` and rolled up to ``partkey`` and
-   the grand total with ``repro_torch.pipeline``, against NumPy.
+   the grand total with ``repro_torch.pipeline``, against NumPy;
+8. the bitonic foil: every merge-absorb input phase 3 gave the merge-path
+   kernel, replayed through ``ops.merge_absorb_sorted_bitonic``, must equal
+   the merge-path kernel's result exactly; both timed on the shape that
+   carried most rows;
+9. the serve path: ``qwen3-moe-30b-a3b`` at its published widths, random
+   weights from the seed, prefill of 4 x 256 tokens and greedy decode to 16
+   tokens through the sorted MoE dispatch (the argsort and grouped-matmul
+   kernels).  Gates: a 2-layer float32 copy served with the kernels and
+   again with the plain versions on the same weights, teacher-forced,
+   must route every token to the same experts, agree on the logits within
+   rtol/atol 1e-3 and pick the same greedy tokens; the 48-layer bfloat16
+   model is served the same two ways, its logits must be finite and its
+   largest |logit difference| and share of equal greedy tokens are
+   reported; every grouped-matmul shape lies within one bfloat16 ulp of
+   the float32 product plus float32's own bound for summing in another
+   order (``gmm_tolerance``).
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -36,13 +52,15 @@ the first inputs of every shape it gives each kernel (``capture``); after
 it, each kernel must equal its plain version on every one of them, and
 the kernels are timed beside their plain versions and library calls on
 the inputs of the shape that carried most rows through them (``settle``):
-the aggregate kernels on phase 3's, the probe on phase 6's, with the
-join paths' times beside.  The last lines are the kernels' JSON record,
+the aggregate kernels on phase 3's, the probe on phase 6's, the bitonic
+foil on phase 8's, the grouped matmul on phase 9's (every shape), with the
+other paths' times beside.  The last lines are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -58,6 +76,7 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 20201001
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 MAIN_CFG = dict(memory_rows=1 << 20, batch_rows=1 << 16, page_rows=1 << 14, fanin=16)
 SPILL_CFG = dict(memory_rows=1 << 14, batch_rows=1 << 12, page_rows=1 << 10, fanin=4)
 AGG_KERNELS = ("argsort", "segmented_combine", "merge_absorb")
@@ -69,7 +88,15 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
                      "src/repro/kernels/merge_path.py:112"),
     "join_probe": ("src/repro_torch/kernels/csrc/join_probe.cu",
                    "src/repro/kernels/merge_path.py:193"),
+    "grouped_matmul": ("src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/grouped_matmul.py:46"),
+    "merge_absorb_bitonic": ("src/repro_torch/kernels/csrc/merge_aggregate.cu",
+                             "src/repro/kernels/merge_aggregate.py:75"),
 }
+RECORD_PATH = {"join_probe": "merge_join", "grouped_matmul": "serve",
+               "merge_absorb_bitonic": "bitonic foil"}  # else "aggregate"
+SERVE = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=256, gen=16)
+
 Q4_DAYS = (547, 639)  # [1993-07-01, 1993-10-01) in days after 1992-01-01
 
 
@@ -224,7 +251,88 @@ def check_kernels(dev, B: int, M: int, P: int) -> None:
                                merge_path.merge_absorb_cuda(a, b, assume_unique=uniq),
                                merge_path.merge_absorb_plain(a, b, assume_unique=uniq))
     check_probe(dev, rng)
+    check_bitonic(dev, rng)
+    check_grouped_matmul(dev, rng)
     log("kernels ok on the edge cases")
+
+
+def check_bitonic(dev, rng) -> None:
+    """The bitonic merge-absorb equals its plain version and the merge-path
+    kernel's plain version exactly: test_kernels.py's tiles (n = 64, 256,
+    1024 a side, keys from n/2), EMPTY tails, unequal sides, one key for
+    all rows, 1- and 4-wide planes."""
+    from repro_torch.kernels import merge_aggregate, merge_path
+
+    cases = [(n, n, n // 2, 0.0, (2, 2, 2)) for n in (64, 256, 1024)]
+    cases += [(3000, 500, 5000, 0.2, (1, 0, 0)), (5, 70_000, 50_000, 0.1, (4, 0, 0)),
+              (1 << 16, 4096, 1, 0.0, (1, 1, 1)), (0, 9, 20, 0.0, (1, 0, 0)),
+              (1_064_960, 16_384, 1 << 24, 0.3, (1, 0, 0))]
+    for na, nb, domain, fill, widths in cases:
+        a = make_state(rng, na, np.uint32, domain, fill, widths, dedup=True, device=dev)
+        b = make_state(rng, nb, np.uint32, domain, fill, widths, device=dev)
+        got = merge_aggregate.merge_absorb_bitonic_cuda(a, b)
+        state_diff(f"merge_absorb_bitonic {na}+{nb} {widths}", got,
+                   merge_aggregate.merge_absorb_bitonic_plain(a, b))
+        state_diff(f"merge_absorb_bitonic {na}+{nb} {widths} vs merge path", got,
+                   merge_path.merge_absorb_plain(a, b))
+
+
+def gmm_tolerance(x, w, capacity: int):
+    """The float32 product of a grouped matmul and the tolerance of each
+    output element: one ulp of the output dtype at the product, plus twice
+    float32's bound for a sum of D products in another order (D * 2^-24 *
+    sum |x| |w|, for the kernel's sum and for the product's): near zero a
+    sum of products that cancel carries more float32 error than one
+    bfloat16 ulp of the result."""
+    import torch
+
+    e, d, f = w.shape
+    xs = x.reshape(e, capacity, d).float()
+    want32 = torch.einsum("ecd,edf->ecf", xs, w.float()).reshape(e * capacity, f)
+    mag = torch.einsum("ecd,edf->ecf", xs.abs(), w.float().abs()).reshape(e * capacity, f)
+    _, ex = torch.frexp(want32)
+    bits = 8 if x.dtype == torch.bfloat16 else 24
+    tol = torch.ldexp(torch.ones_like(want32), ex - bits) + 2 * d * 2.0 ** -24 * mag
+    return want32, tol
+
+
+def gmm_error(x, w, capacity: int, got=None) -> tuple[float, float]:
+    """The grouped-matmul kernel (or its output ``got``) against the float32
+    product: (max |kernel - plain version|, max |kernel - product| in units
+    of :func:`gmm_tolerance`)."""
+    from repro_torch.kernels import grouped_matmul
+
+    if got is None:
+        got = grouped_matmul.grouped_matmul_cuda(x, w, capacity=capacity)
+    if got.numel() == 0:
+        return 0.0, 0.0
+    want32, tol = gmm_tolerance(x, w, capacity)
+    ratio = float(((got.float() - want32).abs() / tol).max())
+    return float((got.float() - want32.to(x.dtype).float()).abs().max()), ratio
+
+
+def check_grouped_matmul(dev, rng) -> None:
+    """Decode's and prefill's shapes at the served model's widths, a
+    capacity that is no multiple of 8 or 64, D and F that are no multiples
+    of the tiles, one expert; bfloat16 and float32; padding rows zero; each
+    within :func:`gmm_tolerance` of the float32 product."""
+    import torch
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for e, c, d, f in ((128, 8, 2048, 768), (128, 64, 768, 2048), (16, 72, 200, 130),
+                           (1, 64, 96, 257), (3, 13, 1000, 1000)):
+            x = torch.from_numpy(rng.normal(size=(e * c, d)).astype(np.float32)).to(dev, dtype)
+            x.view(e, c, d)[:, c // 2:] = 0  # capacity padding
+            w = torch.from_numpy((rng.normal(size=(e, d, f)) / math.sqrt(d)).astype(np.float32))
+            w = w.to(dev, dtype)
+            err, ratio = gmm_error(x, w, c)
+            if ratio > 1.0:
+                raise SystemExit(f"FAIL grouped_matmul {dtype} E={e} C={c} D={d} F={f}: "
+                                 f"{ratio:.3f} x the tolerance (max |diff| {err})")
+            if (e, c) == (128, 8):  # the library's product against the same tolerance
+                _, lib = gmm_error(x, w, c, got=torch.bmm(x.view(e, c, d), w).view(e * c, f))
+                log(f"grouped_matmul {dtype} decode shape: kernel {ratio:.3f}, torch.bmm "
+                    f"{lib:.3f} x the tolerance; max |kernel - plain| {err}")
 
 
 def probe_keys(rng, n, m, key_dtype, device):
@@ -283,7 +391,13 @@ def _kernel_table():
     call, copy of a call's inputs)."""
     import torch
 
-    from repro_torch.kernels import bitonic_sort, merge_path, segmented_reduce
+    from repro_torch.kernels import (
+        bitonic_sort,
+        grouped_matmul,
+        merge_aggregate,
+        merge_path,
+        segmented_reduce,
+    )
 
     def copy(s):
         return s.map(torch.clone)
@@ -302,6 +416,15 @@ def _kernel_table():
         "join_probe": (merge_path, "join_probe_cuda", "join_probe_plain",
                        lambda a, b, empty: (a.shape[0], b.shape[0]),
                        lambda a, b, empty: ((a.clone(), b.clone(), empty), {})),
+        "grouped_matmul": (grouped_matmul, "grouped_matmul_cuda", "grouped_matmul_plain",
+                           lambda x, w, capacity: (x.shape[0], x.shape[1], w.shape[2], capacity,
+                                                   str(x.dtype).replace("torch.", "")),
+                           lambda x, w, capacity: ((x.clone(), w.clone()),
+                                                   {"capacity": capacity})),
+        "merge_absorb_bitonic": (merge_aggregate, "merge_absorb_bitonic_cuda",
+                                 "merge_absorb_bitonic_plain",
+                                 lambda a, b: (a.capacity, b.capacity, a.widths),
+                                 lambda a, b: ((copy(a), copy(b)), {})),
     }
 
 
@@ -341,7 +464,13 @@ def _compare(name: str, args, kw) -> float:
     import torch
 
     mod, launch, plain, _, _ = _kernel_table()[name]
-    got, want = getattr(mod, launch)(*args, **kw), getattr(mod, plain)(*args, **kw)
+    got = getattr(mod, launch)(*args, **kw)
+    if name == "grouped_matmul":
+        err, ratio = gmm_error(*args, kw["capacity"], got=got)
+        if ratio > 1.0:
+            raise SystemExit(f"FAIL grouped_matmul: {ratio:.3f} x the tolerance")
+        return err
+    want = getattr(mod, plain)(*args, **kw)
     if name in ("argsort", "join_probe"):
         same = (torch.equal(got, want) if name == "argsort"
                 else all(torch.equal(x, y) for x, y in zip(got, want)))
@@ -355,10 +484,11 @@ MAX_ERR: dict[str, float] = {}
 TIMES: dict[str, dict[str, dict]] = {}  # path -> kernel -> times
 
 
-def settle(path: str, timed_kernels=()) -> None:
+def settle(path: str, timed_kernels=(), keep=()) -> None:
     """Hold each kernel of the path against its plain version on the copied
     inputs of every signature the path gave it, time ``timed_kernels``
-    (:func:`time_kernel`), then drop the copies."""
+    (:func:`time_kernel`), then drop the copies (but those of the kernels
+    in ``keep``)."""
     for name, sigs in CAPTURED[path].items():
         for key, (calls, (args, kw)) in sigs.items():
             err = _compare(name, args, kw)
@@ -370,9 +500,10 @@ def settle(path: str, timed_kernels=()) -> None:
             raise SystemExit(f"FAIL {path}: kernel {name} was never launched")
         TIMES.setdefault(path, {})[name] = time_kernel(name, path)
         log(f"{path}: {name} timed: {json.dumps(TIMES[path][name])}")
-    for sigs in CAPTURED[path].values():
-        for entry in sigs.values():
-            entry[1] = None
+    for name, sigs in CAPTURED[path].items():
+        if name not in keep:
+            for entry in sigs.values():
+                entry[1] = None
 
 
 def _bound(name: str, args) -> tuple[float, str]:
@@ -385,7 +516,14 @@ def _bound(name: str, args) -> tuple[float, str]:
         st = args[0]
         n = st.capacity
         return bound(2 * n * row_bytes(st), n * (1 + sum(st.widths)))
-    if name == "merge_absorb":
+    if name == "grouped_matmul":
+        x, w = args
+        e, d, f = w.shape
+        nbytes = (x.numel() + w.numel() + x.shape[0] * f) * x.element_size()
+        rate = BF16_TENSOR_OPS_PER_S if x.dtype.itemsize == 2 else CUDA_CORE_OPS_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * x.shape[0] * d * f / rate
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    if name in ("merge_absorb", "merge_absorb_bitonic"):  # the same function
         a, b = args
         n = a.capacity + b.capacity
         return bound(2 * n * row_bytes(a), n * (math.log2(max(a.capacity, 2)) + 1 +
@@ -397,19 +535,36 @@ def _bound(name: str, args) -> tuple[float, str]:
 def time_kernel(name: str, path: str) -> dict:
     """Kernel, plain version and library call timed on the copied inputs of
     the signature that carried the most rows through the kernel on the
-    path: calls times input rows (the probe's left rows, one thread each)."""
-    import torch
-
+    path: calls times input rows (the probe's left rows, one thread each;
+    the grouped matmul's E*C rows, and every one of its shapes timed)."""
     sigs = CAPTURED[path][name]
 
     def rows(k):
-        return k[0] if name == "join_probe" else sum(x for x in k if type(x) is int)
+        if name in ("join_probe", "grouped_matmul"):  # left rows; E*C rows
+            return k[0]
+        return sum(x for x in k if type(x) is int)
 
     key = max(sigs, key=lambda k: (sigs[k][0] * rows(k), k))
-    calls, (args, kw) = sigs[key]
+    out = time_call(name, path, key)
+    if name == "grouped_matmul":  # the decode and prefill shapes
+        out["by_shape"] = [time_call(name, path, k) for k in sorted(sigs, key=str)]
+    return out
+
+
+def time_call(name: str, path: str, key) -> dict:
+    import torch
+
+    calls, (args, kw) = CAPTURED[path][name][key]
     mod, launch, plain, _, _ = _kernel_table()[name]
+
+    def bmm():
+        x, w = args
+        e, d, _ = w.shape
+        return torch.bmm(x.view(e, -1, d), w)
+
     library = {"argsort": lambda: torch.argsort(args[0], stable=True),
-               "join_probe": lambda: torch.searchsorted(args[1], args[0])}.get(name)
+               "join_probe": lambda: torch.searchsorted(args[1], args[0]),
+               "grouped_matmul": bmm}.get(name)
     b_ms, b_by = _bound(name, args)
     return dict(
         path=path, shape=list(key), calls_at_shape=calls,
@@ -698,20 +853,215 @@ def pipeline_path(dev, L20, q20, rng, sf=1) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the bitonic foil on phase 3's merge-absorb inputs
+# ---------------------------------------------------------------------------
+
+
+def foil_path() -> dict:
+    """Replay every merge-absorb input phase 3 gave the merge-path kernel
+    through the bitonic merge-absorb; each result must equal the merge-path
+    kernel's exactly (integer payloads).  Both kernels timed on the inputs
+    of the shape that carried most rows on phase 3."""
+    from repro_torch.kernels import merge_path, ops
+    from repro_torch.kernels.merge_aggregate import next_pow2
+
+    sigs = CAPTURED["aggregate"]["merge_absorb"]
+    ops.reset_launch_counts()
+    with capture("bitonic foil"):
+        outs = {key: ops.merge_absorb_sorted_bitonic(*args)
+                for key, (_, (args, _)) in sigs.items()}
+        _sync()
+    launches = dict(ops.LAUNCHES)
+    require_launches("bitonic foil", launches, ("merge_absorb_bitonic",))
+    for key, (_, (args, kw)) in sigs.items():
+        state_diff(f"bitonic foil {list(key)} vs merge path", outs.pop(key),
+                   merge_path.merge_absorb_cuda(*args, **kw))
+    foil = CAPTURED["bitonic foil"]["merge_absorb_bitonic"]
+    for key in sigs:  # timed where phase 3 sent most rows: phase 3's call counts
+        foil[key[:3]][0] = 0
+    for key, (calls, _) in sigs.items():
+        foil[key[:3]][0] += calls
+    settle("bitonic foil", ("merge_absorb_bitonic",))
+    t = TIMES["bitonic foil"]["merge_absorb_bitonic"]
+    busiest = max((k for k in sigs if list(k[:3]) == t["shape"]), key=lambda k: sigs[k][0])
+    _, (args, kw) = sigs[busiest]
+    t["merge_path_ms"] = cuda_ms(lambda: merge_path.merge_absorb_cuda(*args, **kw), 20)
+    t["padded_rows"] = 2 * next_pow2(max(busiest[0], busiest[1]))
+    for sig in sigs.values():
+        sig[1] = None
+    info = dict(replayed_shapes=[list(k) for k in sigs], launches=launches, timed=t)
+    log(f"bitonic foil ok: {json.dumps(info)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the serve path of the sorted-dispatch MoE model
+# ---------------------------------------------------------------------------
+
+
+def _sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def routes():
+    """Record the expert ids every MoE router call chose (host copies)."""
+    from repro_torch.models import moe
+
+    seen, orig = [], moe._router
+
+    def tap(*args, **kw):
+        out = orig(*args, **kw)
+        seen.append(out[0].cpu())
+        return out
+
+    moe._router = tap
+    try:
+        yield seen
+    finally:
+        moe._router = orig
+
+
+def serve_pair(model, cfg, prompts, capture_as: str):
+    """Serve ``prompts`` with the kernels (under ``capture``), then with
+    the plain versions on the same weights, teacher-forced with the
+    kernels' tokens.  Returns both generations, the launches of the kernel
+    run and both runs' routes."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+
+    kw = dict(gen=SERVE["gen"], max_len=SERVE["prompt_len"] + SERVE["gen"], keep_logits=True)
+    ops.reset_launch_counts()
+    with capture(capture_as), routes() as ra:
+        a = generate(model, cfg, prompts, backend="cuda", **kw)
+    launches = dict(ops.LAUNCHES)
+    with routes() as rb:
+        b = generate(model, cfg, prompts, backend="torch", force=a.tokens[:, :-1], **kw)
+    return a, b, launches, ra, rb
+
+
+def profile_serve(model, cfg, prompts) -> dict:
+    """Device time by kernel over a prefill and two decode steps
+    (``torch.profiler``), beside the host clock: where the serve step's time
+    goes and the device's idle share.  "not measured" where the profiler
+    saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import generate
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _sync()
+        t0 = time.perf_counter()
+        generate(model, cfg, prompts, gen=3, max_len=SERVE["prompt_len"] + 3, backend="cuda")
+        _sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def self_device_us(evt) -> float:
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, attr):
+                return float(getattr(evt, attr))
+        return 0.0
+
+    # kernel rows only: an operator's row repeats the time of the kernels it launched
+    rows = sorted(((self_device_us(e), e.key, e.count) for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CPU), reverse=True)
+    busy_ms = sum(us for us, _, _ in rows) / 1e3
+    if busy_ms == 0:
+        return {"window": "prefill + 2 decode steps", "device_time": "not measured"}
+    return {"window": "prefill + 2 decode steps", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "top_kernels": [[name[:80], us / 1e3, count] for us, name, count in rows[:10]]}
+
+
+def serve_path(dev) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(SERVE["arch"])
+    b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(SEED))
+
+    # gate (b): 2 layers at full width in float32, kernels against plain
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = M.init(cfg2, torch.Generator(device=dev).manual_seed(SEED))
+    a, p, _, ra, rb = serve_pair(model, cfg2, prompts, "serve fp32")
+    del model
+    if len(ra) != len(rb) or not all(torch.equal(x, y) for x, y in zip(ra, rb)):
+        raise SystemExit("FAIL serve fp32: the kernels and the plain versions routed "
+                         "tokens to different experts")
+    if not np.allclose(a.logits, p.logits, rtol=1e-3, atol=1e-3):
+        raise SystemExit(f"FAIL serve fp32: logits differ by {np.abs(a.logits - p.logits).max()}"
+                         " (rtol/atol 1e-3)")
+    check_equal("serve fp32 greedy tokens", a.tokens, p.tokens)
+    fp32 = dict(layers=2, max_abs_logit_diff=float(np.abs(a.logits - p.logits).max()),
+                router_calls=len(ra))
+    log(f"serve fp32 (2 layers, full width) ok: {json.dumps(fp32)}")
+    settle("serve fp32")
+    torch.cuda.empty_cache()
+
+    # gate (c): all 48 layers in bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    _sync()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in model.parameters())
+    a, p, launches, ra, rb = serve_pair(model, cfg, prompts, "serve")
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(a.logits).all():
+        raise SystemExit("FAIL serve: non-finite logits")
+    steps, layers = gen, cfg.n_layers
+    want = {"grouped_matmul": 3 * layers * steps, "argsort": layers * steps}
+    require_launches("serve", launches, ("grouped_matmul", "argsort"))
+    if any(launches[k] != v for k, v in want.items()):
+        raise SystemExit(f"FAIL serve: launches {launches}, expected {want}")
+    same_routes = float(np.mean(np.concatenate(
+        [(x == y).numpy().reshape(-1) for x, y in zip(ra, rb)])))
+    info = dict(
+        arch=cfg.name, layers=layers, dtype=cfg.dtype, batch=b, prompt_len=s, gen=gen,
+        weight_bytes=weights, param_count=cfg.param_count(), init_s=init_s,
+        prefill_s=a.t_prefill, decode_ms_per_token=a.t_decode * 1e3,
+        decode_tokens_per_s=b / a.t_decode,
+        generated_tokens_per_s=b * gen / (a.t_prefill + (gen - 1) * a.t_decode),
+        plain_prefill_s=p.t_prefill, plain_decode_ms_per_token=p.t_decode * 1e3,
+        max_memory_allocated=peak, launches=launches,
+        max_abs_logit_diff=float(np.abs(a.logits - p.logits).max()),
+        equal_top1_share=float(np.mean(a.tokens == p.tokens)),
+        equal_route_share=same_routes, fp32_gate=fp32,
+        profile=profile_serve(model, cfg, prompts))
+    del model
+    settle("serve", ("grouped_matmul", "argsort"))
+    torch.cuda.empty_cache()
+    log(f"serve ok: {json.dumps(info)}")
+    return launches
+
+
 def kernel_records(by_path: dict) -> list[dict]:
     """The kernels' JSON records: each kernel timed and counted on its own
     path, the aggregate's (phase 3) for the aggregate kernels, the merge
-    joins' (phase 6) for the probe, with its times on the other paths
-    beside and every shape it was checked at."""
+    joins' (phase 6) for the probe, the foil's (phase 8) for the bitonic
+    merge-absorb, the serve path's (phase 9) for the grouped matmul, with
+    its times on the other paths beside and every shape it was checked at."""
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        path = "merge_join" if name == "join_probe" else "aggregate"
+        path = RECORD_PATH.get(name, "aggregate")
         t = TIMES[path][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=by_path[path][name], max_abs_err=MAX_ERR[name], max_abs_diff=MAX_ERR[name],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], path=path,
+            **{k: t[k] for k in ("by_shape", "merge_path_ms", "padded_rows") if k in t},
             other_shapes=[v[name] for p, v in TIMES.items() if p != path and name in v],
             launches_by_path={p: v[name] for p, v in by_path.items()},
             checked_shapes={p: [list(k) + [calls] for k, (calls, _) in sigs[name].items()]
@@ -753,7 +1103,7 @@ def main() -> int:
     rows, ordered = lineitem(10, rng, part_supp=False)
     log(f"SF10 lineitem: {rows['orderkey'].size} rows made in {time.perf_counter() - t0:.1f} s")
     main, L, q18 = main_path(dev, rows, ordered)
-    settle("aggregate", AGG_KERNELS)
+    settle("aggregate", AGG_KERNELS, keep=("merge_absorb",))  # phase 8 replays them
     del ordered
     L20, q20 = u64_path(dev, rng)
     settle("u64 aggregate")
@@ -763,8 +1113,13 @@ def main() -> int:
     by_path["merge_join"], by_path["join_aggregate"] = join_path(dev, L, q18, rows, rng)
     del L, rows
     by_path["pipeline"] = pipeline_path(dev, L20, q20, rng)
+    del L20
     settle("pipeline inputs")
     settle("pipeline", ("join_probe", "segmented_combine"))
+    by_path["bitonic foil"] = foil_path()
+    gc.collect()
+    torch.cuda.empty_cache()  # the serve path needs ~62 of the card's 80 GB
+    by_path["serve"] = serve_path(dev)
     kernels = kernel_records(by_path)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Backend registry of the port (counterpart of :mod:`repro.core.dispatch`).
 
-Two backends provide the engine's four primitives:
+Two backends provide the engine's four primitives and the MoE block's
+grouped matmul:
 
 * ``"torch"`` — the plain PyTorch reference engine
   (:mod:`repro_torch.core.ordered_index`); runs on any device.
@@ -30,18 +31,24 @@ class Backend:
     absorb of two key-sorted states into capacity ``|a| + |b|``.
     ``join_probe(a_keys, b_keys, empty) -> (pos, hit)`` — the merge join's
     probe: each sorted ``a`` key's lower bound in the sorted ``b`` keys
-    (int32, clipped into b's rows) and whether it is there (bool)."""
+    (int32, clipped into b's rows) and whether it is there (bool).
+    ``grouped_matmul(x, w, capacity=C) -> out`` — the expert-blocked
+    product ``out[e*C + i] = x[e*C + i] @ w[e]`` of the sorted MoE
+    dispatch: x ``(E*C, D)``, w ``(E, D, F)``, float32 accumulation, the
+    output in x's dtype."""
 
     name: str
     argsort: Callable
     segmented_combine: Callable
     merge_sorted: Callable
     join_probe: Callable
+    grouped_matmul: Callable
 
 
 def _load_torch() -> Backend:
     from repro_torch.core import merge_join as mj
     from repro_torch.core import ordered_index as oi
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_plain
 
     return Backend(
         name="torch",
@@ -49,6 +56,7 @@ def _load_torch() -> Backend:
         segmented_combine=oi.segmented_combine_torch,
         merge_sorted=oi.merge_absorb_torch,
         join_probe=mj.join_probe_torch,
+        grouped_matmul=grouped_matmul_plain,
     )
 
 
@@ -61,6 +69,7 @@ def _load_cuda() -> Backend:
         segmented_combine=ops.segmented_combine,
         merge_sorted=ops.merge_absorb_sorted,
         join_probe=ops.join_probe,
+        grouped_matmul=ops.moe_grouped_matmul,
     )
 
 
@@ -81,7 +90,9 @@ def resolve_backend_name(name: str | None, device) -> str:
     return name
 
 
-def get_backend(name: str | None = "auto", device="cpu") -> Backend:
+def get_backend(name: str | None, device) -> Backend:
+    """The backend ``name`` (``"auto"``/None: by ``device``, the device of
+    the tensors it will be given)."""
     name = resolve_backend_name(name, device)
     if name not in _cache:
         _cache[name] = _loaders[name]()

@@ -1,0 +1,58 @@
+"""Expert-blocked (grouped) matmul of the sorted MoE dispatch: the CUDA
+kernel of ``csrc/grouped_matmul.cu`` and its plain version.
+
+Counterpart of :mod:`repro.kernels.grouped_matmul` (reached through
+``ops.moe_grouped_matmul``): ``out[e*C + i] = x[e*C + i] @ w[e]`` for the
+capacity-padded, expert-contiguous rows x ``(E*C, D)`` and the expert
+weights w ``(E, D, F)``, bfloat16 or float32 in, float32 accumulation, the
+output in x's dtype.  Any capacity C works: the kernel's row tiles never
+straddle two experts, so the TPU kernel's ``C % block_m == 0`` rule (a TPU
+tiling rule) has no counterpart.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.LL, _build.LL, _build.I,
+         _build.P]
+
+
+def _check_shapes(x: torch.Tensor, w: torch.Tensor, capacity: int) -> None:
+    if x.dim() != 2 or w.dim() != 3:
+        raise ValueError(f"grouped matmul of x {tuple(x.shape)} and w {tuple(w.shape)}: "
+                         "expected x (E*C, D) and w (E, D, F)")
+    e, d, _ = w.shape
+    if x.shape != (e * capacity, d):
+        raise ValueError(f"x {tuple(x.shape)} is not (E*C, D) = ({e}*{capacity}, {d}) for w "
+                         f"{tuple(w.shape)}")
+
+
+def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> torch.Tensor:
+    """``einsum("ecd,edf->ecf")`` in float32, cast back to x's dtype."""
+    _check_shapes(x, w, capacity)
+    e, d, f = w.shape
+    out = torch.einsum("ecd,edf->ecf", x.reshape(e, capacity, d).to(torch.float32),
+                       w.to(torch.float32))
+    return out.reshape(e * capacity, f).to(x.dtype)
+
+
+def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> torch.Tensor:
+    """Launch the grouped-matmul kernel on contiguous CUDA tensors of one
+    dtype (bfloat16 or float32).  An empty output launches nothing."""
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"grouped matmul: dtype {x.dtype} is not bfloat16 or float32")
+    _build.check(x, x.dtype, "x", ndim=2)
+    _build.check(w, x.dtype, "w", ndim=3, device=x.device)
+    _check_shapes(x, w, capacity)
+    e, d, f = w.shape
+    out = torch.empty((e * capacity, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.fn("grouped_matmul", "repro_grouped_matmul", _ARGS)
+    err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, capacity, d, f, _DTYPES[x.dtype],
+             _build.stream_of(x))
+    _build.raise_on(err, "grouped_matmul")
+    return out

@@ -1,6 +1,7 @@
 """The ``"cuda"`` backend's primitives (counterpart of
 :mod:`repro.kernels.ops`): ``argsort_keys``, ``segmented_combine``,
-``merge_absorb_sorted`` and ``join_probe``.
+``merge_absorb_sorted``, ``join_probe``, ``moe_grouped_matmul`` and the
+bitonic foil ``merge_absorb_sorted_bitonic``.
 
 On a CPU tensor each takes its kernel's plain version; on any other
 device it launches the kernel or raises — never a quiet fallback.  Each
@@ -16,9 +17,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.types import AggState
-from repro_torch.kernels import bitonic_sort, merge_path, segmented_reduce
+from repro_torch.kernels import (
+    bitonic_sort,
+    grouped_matmul,
+    merge_aggregate,
+    merge_path,
+    segmented_reduce,
+)
 
-LAUNCHES = {"argsort": 0, "segmented_combine": 0, "merge_absorb": 0, "join_probe": 0}
+LAUNCHES = {"argsort": 0, "segmented_combine": 0, "merge_absorb": 0, "join_probe": 0,
+            "grouped_matmul": 0, "merge_absorb_bitonic": 0}
 
 
 def reset_launch_counts() -> None:
@@ -63,4 +71,27 @@ def join_probe(a_keys: torch.Tensor, b_keys: torch.Tensor, empty: int):
     out = merge_path.join_probe_cuda(a_keys, b_keys, empty)
     if a_keys.shape[0]:
         LAUNCHES["join_probe"] += 1
+    return out
+
+
+def merge_absorb_sorted_bitonic(a: AggState, b: AggState) -> AggState:
+    """The previous-generation merge-absorb (a bitonic merge network), kept
+    as the merge-path kernel's foil: u32-domain keys only, both sides
+    padded to the next power of two of the larger capacity, output trimmed
+    to ``min(|a| + |b|, 2n)`` rows."""
+    if a.device.type == "cpu":
+        return merge_aggregate.merge_absorb_bitonic_plain(a, b)
+    out = merge_aggregate.merge_absorb_bitonic_cuda(a, b)
+    LAUNCHES["merge_absorb_bitonic"] += 1
+    return out
+
+
+def moe_grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> torch.Tensor:
+    """``out[e*C + i] = x[e*C + i] @ w[e]``: x ``(E*C, D)``, w ``(E, D, F)``,
+    float32 accumulation, the output in x's dtype."""
+    if x.device.type == "cpu":
+        return grouped_matmul.grouped_matmul_plain(x, w, capacity=capacity)
+    out = grouped_matmul.grouped_matmul_cuda(x, w, capacity=capacity)
+    if out.numel():
+        LAUNCHES["grouped_matmul"] += 1
     return out

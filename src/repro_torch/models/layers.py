@@ -1,0 +1,209 @@
+"""Model substrate of the port: projections, RMSNorm, RoPE, GQA attention
+with a chunked online softmax and the decode cache, and MLPs
+(counterpart of :mod:`repro.models.layers`).
+
+Parameters live in small ``nn.Module`` holders whose attribute paths
+mirror the reference's parameter dicts (``attn.wq.kernel`` is
+``p["attn"]["wq"]["kernel"]``), so ``model.params_from_numpy`` copies the
+reference's weights without transposes: a projection's ``kernel`` is
+``(d_in, d_out)`` and ``dense`` computes ``x @ kernel``.  Every tensor is
+drawn in float32 from an explicit ``torch.Generator`` with the reference's
+scale, then cast.  The reference's activation-sharding ``hint`` is a no-op
+without a mesh and has no counterpart; MLA and M-RoPE are not ported
+(ROADMAP Queue 1 item 12).  Serving only: parameters carry no gradient.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def normal(gen: torch.Generator | None, shape, scale: float, dtype, device) -> torch.Tensor:
+    """``N(0, 1) * scale`` drawn in float32 from ``gen`` and cast to
+    ``dtype``; uninitialised when ``gen`` is None (weights to be copied
+    in)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return t.mul_(scale).to(dtype)
+
+
+class Dense(nn.Module):
+    def __init__(self, d_in: int, d_out: int, *, dtype, device, gen=None, bias=False):
+        super().__init__()
+        self.kernel = param(normal(gen, (d_in, d_out), 1.0 / math.sqrt(max(1, d_in)), dtype,
+                                   device))
+        self.bias = param(torch.zeros((d_out,), dtype=dtype, device=device)) if bias else None
+
+
+class Norm(nn.Module):
+    def __init__(self, d: int, *, dtype, device):
+        super().__init__()
+        self.scale = param(torch.ones((d,), dtype=dtype, device=device))
+
+
+def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.kernel
+    if p.bias is not None:
+        y = y + p.bias
+    return y
+
+
+def rmsnorm(p: Norm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in float32, cast back to the input's dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p.scale.to(torch.float32)).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (half-split, as the reference)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, S, H, Dh); positions (B, S) int.  The first and second halves
+    of each head are the rotated pairs (not interleaved)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, d/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1 = x[..., : d // 2].to(torch.float32)
+    x2 = x[..., d // 2:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked attention (online softmax over KV chunks, a loop over Q chunks)
+# ---------------------------------------------------------------------------
+
+
+def _attn_chunked(q, k, v, *, causal: bool, q_offset: int, chunk_q: int, chunk_k: int):
+    """q (B, Sq, H, D); k, v (B, Sk, H, D), already head-repeated.  Memory
+    is O(chunk_q x chunk_k) per head; scores and the running sums are in
+    float32, the output in q's dtype."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    if sq % cq or sk % ck:
+        raise ValueError(f"attention lengths {sq}, {sk} do not divide into chunks {cq}, {ck}")
+    outs = []
+    for iq in range(sq // cq):
+        qblk = q[:, iq * cq:(iq + 1) * cq]
+        q_pos = q_offset + iq * cq + torch.arange(cq, device=q.device)
+        m = torch.full((b, h, cq), -math.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, cq, d), dtype=torch.float32, device=q.device)
+        for ik in range(sk // ck):
+            kblk, vblk = k[:, ik * ck:(ik + 1) * ck], v[:, ik * ck:(ik + 1) * ck]
+            s = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk).to(torch.float32) * scale
+            if causal:
+                k_pos = ik * ck + torch.arange(ck, device=q.device)
+                mask = q_pos[:, None] >= k_pos[None, :]
+                s = torch.where(mask[None, None], s, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vblk.to(torch.float32))
+            m = m_new
+        l = torch.clamp_min(l, 1e-20)
+        outs.append((acc / l[..., None]).transpose(1, 2).to(q.dtype))  # (B, cq, H, D)
+    return torch.cat(outs, 1)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return x
+    b, s, kh, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, kh, n_rep, d).reshape(b, s, kh * n_rep, d)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, gen=None):
+        super().__init__()
+        d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        kw = dict(dtype=dtype, device=device, gen=gen)
+        self.wq = Dense(d, h * dh, bias=cfg.qkv_bias, **kw)
+        self.wk = Dense(d, kh * dh, bias=cfg.qkv_bias, **kw)
+        self.wv = Dense(d, kh * dh, bias=cfg.qkv_bias, **kw)
+        self.wo = Dense(h * dh, d, **kw)
+
+
+def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
+              cache: dict | None = None):
+    """x (B, S, D).  ``cache``: None, or one layer's ``{"k", "v", "index"}``
+    (k/v ``(B, Smax, KH, Dh)``, ``index`` the tokens already cached, a host
+    integer).  The new K/V rows are written into the cache's tensors in
+    place; returns ``(out, new_cache)`` with the advanced index."""
+    b, sq, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = dense(p.wq, x).reshape(b, sq, h, dh)
+    k = dense(p.wk, x).reshape(b, sq, kh, dh)
+    v = dense(p.wv, x).reshape(b, sq, kh, dh)
+    if cfg.rope == "mrope":
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 12)")
+    if cfg.rope == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        out = _attn_chunked(q, repeat_kv(k, h // kh), repeat_kv(v, h // kh), causal=cfg.causal,
+                            q_offset=0, chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+        return dense(p.wo, out.reshape(b, sq, h * dh)), None
+    idx = int(cache["index"])
+    ck, cv = cache["k"], cache["v"]
+    if idx + sq > ck.shape[1]:
+        raise ValueError(f"cache of {ck.shape[1]} positions cannot take {sq} more after {idx}")
+    if cfg.kv_dup > 1:  # store duplicated kv heads, as the reference does
+        k, v = repeat_kv(k, cfg.kv_dup), repeat_kv(v, cfg.kv_dup)
+    ck[:, idx:idx + sq] = k.to(ck.dtype)
+    cv[:, idx:idx + sq] = v.to(cv.dtype)
+    n_rep = h // (kh * cfg.kv_dup)
+    # positions past idx + sq hold zeros and are masked by the causal offset
+    out = _attn_chunked(q, repeat_kv(ck.to(q.dtype), n_rep), repeat_kv(cv.to(q.dtype), n_rep),
+                        causal=True, q_offset=idx, chunk_q=min(cfg.attn_chunk_q, sq),
+                        chunk_k=cfg.attn_chunk_k)
+    new_cache = {"k": ck, "v": cv, "index": cache["index"] + sq}
+    return dense(p.wo, out.reshape(b, sq, h * dh)), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, act: str, *, dtype, device, gen=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, gen=gen)
+        self.wi = Dense(d, d_ff, **kw)
+        self.wg = Dense(d, d_ff, **kw) if act == "swiglu" else None
+        self.wo = Dense(d_ff, d, **kw)
+
+
+def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "swiglu":
+        return dense(p.wo, F.silu(dense(p.wg, x)) * dense(p.wi, x))
+    return dense(p.wo, F.gelu(dense(p.wi, x), approximate="tanh"))  # jax.nn.gelu's default

@@ -1,13 +1,20 @@
 """The CUDA kernels held against their plain versions on the card, and the
-port's pipeline on the card against its plain CPU run.  Every test needs
+port's pipeline and MoE serve path on the card against their plain CPU
+runs.  Every test needs
 an NVIDIA card and ``nvcc`` and skips elsewhere; on the card run
 
     python -m pytest -q --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have; this file imports only torch and the port).
-Payloads are integer-valued, so sums agree exactly in any order.
+Aggregate payloads are integer-valued, so sums agree exactly in any
+order; a grouped matmul must lie within one ulp of its dtype at the
+float32 product plus float32's bound for summing D products in another
+order (twice D * 2^-24 * sum |x||w|): both accumulate in float32, then
+round once.
 """
+import dataclasses as dc
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +30,17 @@ from repro_torch.core.types import (
     state_to_numpy,
     take,
 )
-from repro_torch.kernels import bitonic_sort, merge_path, ops, segmented_reduce
+from repro_torch.configs import get_config
+from repro_torch.kernels import (
+    bitonic_sort,
+    grouped_matmul,
+    merge_aggregate,
+    merge_path,
+    ops,
+    segmented_reduce,
+)
+from repro_torch.launch.serve import generate
+from repro_torch.models import model as M
 
 pytestmark = pytest.mark.cuda
 RNG = np.random.default_rng(17)
@@ -129,8 +146,10 @@ def test_wrappers_launch_on_cuda_and_count(dev):
     ops.merge_absorb_sorted(ops.segmented_combine(st), st)
     ops.argsort_keys(st.keys)
     ops.join_probe(st.keys, st.keys, st.empty)
+    ops.merge_absorb_sorted_bitonic(st, st)
+    ops.moe_grouped_matmul(st.sum.reshape(10, 100), st.sum.reshape(2, 100, 5), capacity=5)
     assert ops.LAUNCHES == {"argsort": 1, "segmented_combine": 1, "merge_absorb": 1,
-                            "join_probe": 1}
+                            "join_probe": 1, "grouped_matmul": 1, "merge_absorb_bitonic": 1}
 
 
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
@@ -183,3 +202,67 @@ def test_merge_join_and_rollup_on_the_card_match_cpu(dev, bits):
         for c in a[k]:
             np.testing.assert_array_equal(a[k][c], b[k][c], err_msg=f"{k}: {c}")
     assert a["inner"]["join_count"].size > 0 and a["anti"]["count_left"].size > 0
+
+
+def gmm_error(got, x, w, c) -> float:
+    """Largest |got - float32 product| in units of the tolerance above."""
+    e, d, f = w.shape
+    xs = x.reshape(e, c, d).float()
+    want32 = torch.einsum("ecd,edf->ecf", xs, w.float()).reshape(e * c, f)
+    mag = torch.einsum("ecd,edf->ecf", xs.abs(), w.float().abs()).reshape(e * c, f)
+    _, ex = torch.frexp(want32)
+    bits = 8 if x.dtype == torch.bfloat16 else 24
+    tol = torch.ldexp(torch.ones_like(want32), ex - bits) + 2 * d * 2.0 ** -24 * mag
+    return float(((got.float() - want32).abs() / tol).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,c,d,f", [(4, 8, 256, 384), (3, 64, 200, 130), (2, 72, 96, 257),
+                                     (1, 33, 2048, 768)])
+def test_grouped_matmul_kernel_matches_plain(dev, e, c, d, f, dtype):
+    x = torch.from_numpy(RNG.normal(size=(e * c, d)).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((RNG.normal(size=(e, d, f)) / np.sqrt(d)).astype(np.float32))
+    w = w.to(dev, dtype)
+    x[: c // 2] = 0  # capacity padding rows
+    got = grouped_matmul.grouped_matmul_cuda(x, w, capacity=c)
+    torch.cuda.synchronize()
+    want32 = torch.einsum("ecd,edf->ecf", x.reshape(e, c, d).float(), w.float()).reshape(e * c, f)
+    assert got.dtype == dtype and got.shape == (e * c, f)
+    assert torch.equal(grouped_matmul.grouped_matmul_plain(x, w, capacity=c), want32.to(dtype))
+    assert gmm_error(got, x, w, c) <= 1.0
+    assert not got[: c // 2].any()
+
+
+@pytest.mark.parametrize("na,nb,domain,widths", [
+    (64, 64, 32, (2, 2, 2)), (1024, 1024, 512, (1, 0, 0)), (3000, 500, 5000, (4, 0, 0)),
+    (5, 70_000, 50_000, (1, 1, 1)), (1 << 16, 4096, 1, (1, 0, 0)),  # all keys equal
+    (0, 9, 20, (1, 0, 0)),
+])
+def test_bitonic_kernel_matches_plain(dev, na, nb, domain, widths):
+    a = _state(dev, na, np.uint32, domain, widths=widths, empty_frac=0.2, unique=True)
+    b = _state(dev, nb, np.uint32, domain, widths=widths, empty_frac=0.1)
+    got = merge_aggregate.merge_absorb_bitonic_cuda(a, b)
+    torch.cuda.synchronize()
+    assert got.capacity == na + nb
+    _assert_same(got, merge_aggregate.merge_absorb_bitonic_plain(a, b))
+    _assert_same(got, merge_path.merge_absorb_plain(a, b))
+
+
+def test_serve_full_width_two_layers_on_the_card_matches_cpu(dev):
+    """qwen3-moe-30b-a3b at its published widths, cut to 2 layers, in
+    float32: the card (kernels) and the CPU (plain versions) on the same
+    weights, the CPU run teacher-forced with the card's tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dc.replace(get_config("qwen3-moe-30b-a3b"), n_layers=2, dtype="float32")
+    card = M.init(cfg, torch.Generator(device=dev).manual_seed(5))
+    host = M.Model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    prompts = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(5))
+    ops.reset_launch_counts()
+    a = generate(card, cfg, prompts, gen=4, max_len=36, keep_logits=True)
+    assert ops.LAUNCHES["grouped_matmul"] == 3 * 2 * 4 and ops.LAUNCHES["argsort"] == 2 * 4
+    b = generate(host, cfg, prompts, gen=4, max_len=36, force=a.tokens[:, :-1],
+                 keep_logits=True)
+    np.testing.assert_allclose(a.logits, b.logits, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(a.tokens, b.tokens)

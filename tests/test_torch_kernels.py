@@ -178,7 +178,10 @@ def _meta_state(n=16):
     lambda s: ops.segmented_combine(s),
     lambda s: ops.merge_absorb_sorted(s, s),
     lambda s: ops.join_probe(s.keys, s.keys, s.empty),
-], ids=["argsort", "segmented_combine", "merge_absorb", "join_probe"])
+    lambda s: ops.moe_grouped_matmul(s.sum.reshape(4, 4), s.sum.reshape(2, 4, 2), capacity=2),
+    lambda s: ops.merge_absorb_sorted_bitonic(s, s),
+], ids=["argsort", "segmented_combine", "merge_absorb", "join_probe", "grouped_matmul",
+        "merge_absorb_bitonic"])
 def test_wrappers_take_the_kernel_path_off_the_cpu(call):
     before = dict(ops.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
