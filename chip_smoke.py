@@ -10,12 +10,17 @@ with a non-zero exit):
 2. hold each kernel against its plain PyTorch version on the card on
    seeded edge cases (u32- and u64-mapped keys, interior EMPTY rows and
    duplicates, unequal merge lengths, both ``assume_unique`` settings,
-   1- and 4-wide sum planes; the probe's EMPTY tails, hits at the right
-   side's ends, keys above it, empty sides);
+   1- and 4-wide sum planes; the cases a look-back across the
+   merge-absorb's tiles gets wrong; the probe's EMPTY tails, hits at the
+   right side's ends, keys above it, empty sides; the grouped matmul at
+   the four serve shapes, capacities 8 to 264 and widths that are no
+   multiple of 64, on the variant its dtype and widths call for);
 3. the main path: ``repro_torch.aggregate`` of TPC-H ``lineitem`` at SF 10
    grouped by ``l_orderkey`` (Q18's inner aggregate: count and sum of
    ``l_quantity``), checked exactly against a NumPy oracle, with every
-   kernel's launch count on that run;
+   kernel's launch count on that run; then the same aggregate again
+   under ``torch.profiler``: device time by kernel, the merge-absorb
+   kernels' sum, and the device's idle share beside the wall;
 4. the u64 path: ``lineitem`` at SF 1 grouped by (``l_partkey``,
    ``l_suppkey``) with SF-10 widths (38 bits), Q20's sum of quantity;
 5. SpillStats parity: one spilling input through the card and through the
@@ -36,13 +41,17 @@ with a non-zero exit):
 9. the serve path: ``qwen3-moe-30b-a3b`` at its published widths, random
    weights from the seed, prefill of 4 x 256 tokens and greedy decode to 16
    tokens through the sorted MoE dispatch (the argsort and grouped-matmul
-   kernels).  Gates: a 2-layer float32 copy served with the kernels and
+   kernels; every bfloat16 product on the tensor-core variant).  Gates: a
+   2-layer float32 copy served with the kernels and
    again with the plain versions on the same weights, teacher-forced,
    must route every token to the same experts, agree on the logits within
    rtol/atol 1e-3 and pick the same greedy tokens; the 48-layer bfloat16
-   model is served the same two ways, its logits must be finite and its
-   largest |logit difference| and share of equal greedy tokens are
-   reported; every grouped-matmul shape lies within one bfloat16 ulp of
+   model is served the same two ways and a third, teacher-forced too,
+   with ``torch.bmm`` in place of the grouped-matmul kernel (the witness):
+   its logits must be finite, and the kernel's shares of routes and of
+   greedy tokens equal to the plain versions' must lie within
+   ``WITNESS_SLACK`` of ``torch.bmm``'s or above; every grouped-matmul
+   shape lies within one bfloat16 ulp of
    the float32 product plus float32's own bound for summing in another
    order (``gmm_tolerance``).
 
@@ -96,12 +105,19 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
 RECORD_PATH = {"join_probe": "merge_join", "grouped_matmul": "serve",
                "merge_absorb_bitonic": "bitonic foil"}  # else "aggregate"
 SERVE = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=256, gen=16)
+# how far below torch.bmm's agreement with the plain versions (routes,
+# greedy tokens) the kernel's may fall on the 48-layer bfloat16 serve
+WITNESS_SLACK = 0.01
 
 Q4_DAYS = (547, 639)  # [1993-07-01, 1993-10-01) in days after 1992-01-01
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, prefixed with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -152,18 +168,48 @@ def check_equal(name: str, got, want) -> None:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, reps: int) -> float:
+_SLEEP_CYCLES_PER_MS: list[float] = []
+
+
+def _device_sleep(ms: float) -> None:
+    """Keep the card busy for about ``ms`` (``torch.cuda._sleep``, its clock
+    calibrated once with CUDA events)."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(1 << 22)
+        b.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append((1 << 22) / a.elapsed_time(b))
+    torch.cuda._sleep(int(ms * _SLEEP_CYCLES_PER_MS[0]))
+
+
+def cuda_ms(fn, reps: int) -> tuple[float, float]:
+    """``(device ms, host ms)`` of one call of ``fn``, each the mean of
+    ``reps`` warm calls.  Host: the host clock over calls enqueued back to
+    back.  Device: CUDA events around the same calls enqueued while the
+    card sleeps for twice the host's time, so that the events time the
+    card's work and not the host's (a wrapper's Python can take longer than
+    its kernel: timed back to back, the events would measure the host)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _device_sleep(2 * host_ms + 1)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms / reps
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -250,10 +296,44 @@ def check_kernels(dev, B: int, M: int, P: int) -> None:
                     state_diff(f"merge_absorb {na}+{nb} {np.dtype(kd)} {widths} unique={uniq}",
                                merge_path.merge_absorb_cuda(a, b, assume_unique=uniq),
                                merge_path.merge_absorb_plain(a, b, assume_unique=uniq))
+    check_merge_lookback(dev, rng, P=P)
     check_probe(dev, rng)
     check_bitonic(dev, rng)
-    check_grouped_matmul(dev, rng)
+    check_grouped_matmul(dev)
     log("kernels ok on the edge cases")
+
+
+def check_merge_lookback(dev, rng, P: int) -> None:
+    """The merge-absorb kernel equals its plain version in the cases a
+    look-back across its tiles of 2,048 output rows gets wrong: one key
+    for every row (a group spanning every tile, at the wide merge's
+    shape too), an all-EMPTY side, empty sides, totals of a tile - 1, a
+    tile and a tile + 1 (one and two tiles), very unequal sides, and
+    min/max planes whose neutral values are +-inf; u32- and u64-mapped
+    keys, duplicates on both sides.  The group of a million rows carries
+    min and max planes only: its sum would pass 2^24, where float32 sums
+    in another order are no longer exact."""
+    from repro_torch.kernels import merge_path
+
+    big = (1 << 20) + P  # the wide merge's pages: (M + P) + P rows
+    cases = [(70_000, 5_000, 1, 0.0, 0.0, (1, 1, 1)), (big, P, 1, 0.0, 0.0, (0, 1, 1)),
+             (6_000, 2_500, 50, 1.0, 0.1, (1, 1, 1)), (2_500, 6_000, 50, 0.1, 1.0, (1, 1, 1)),
+             (0, 5_000, 900, 0.0, 0.2, (2, 2, 2)), (5_000, 0, 900, 0.2, 0.0, (2, 2, 2)),
+             (0, 0, 1, 0.0, 0.0, (1, 0, 0))]
+    cases += [(n - n // 3, n // 3, 300, 0.1, 0.1, (1, 0, 0)) for n in (2047, 2048, 2049)]
+    cases += [(n - 1000, 1000, 600, 0.1, 0.1, (0, 2, 2)) for n in (4095, 4096, 4097)]
+    cases += [(5, 70_000, 20_000, 0.0, 0.1, (4, 0, 0)),
+              (1, big + P - 1, 1 << 20, 0.0, 0.3, (1, 0, 0)),
+              (big + P - 1, 1, 1 << 20, 0.3, 0.0, (1, 0, 0)),
+              (200_000, 3, 50_000, 0.1, 0.0, (4, 0, 0)),
+              (40_000, 40_000, 2_000, 0.05, 0.05, (2, 2, 2))]
+    for kd in (np.uint32, np.uint64):
+        for na, nb, domain, empty_a, empty_b, widths in cases:
+            a = make_state(rng, na, kd, domain, empty_a, widths, device=dev)
+            b = make_state(rng, nb, kd, domain, empty_b, widths, device=dev)
+            state_diff(f"merge_absorb look-back {na}+{nb} domain {domain} {np.dtype(kd)} "
+                       f"{widths}", merge_path.merge_absorb_cuda(a, b),
+                       merge_path.merge_absorb_plain(a, b))
 
 
 def check_bitonic(dev, rng) -> None:
@@ -311,28 +391,47 @@ def gmm_error(x, w, capacity: int, got=None) -> tuple[float, float]:
     return float((got.float() - want32.to(x.dtype).float()).abs().max()), ratio
 
 
-def check_grouped_matmul(dev, rng) -> None:
-    """Decode's and prefill's shapes at the served model's widths, a
-    capacity that is no multiple of 8 or 64, D and F that are no multiples
-    of the tiles, one expert; bfloat16 and float32; padding rows zero; each
-    within :func:`gmm_tolerance` of the float32 product."""
+def check_grouped_matmul(dev) -> None:
+    """The four serve shapes at the served model's widths (wg/wi 2048 ->
+    768 and wo 768 -> 2048 at decode's C = 8 and prefill's C = 64),
+    capacities 13, 72 and 264 (two N tiles of the tensor cores), D and F
+    that are multiples of 8 but not of 64, widths that are no multiple of
+    8 (the CUDA-core variant in bfloat16 too), one expert; bfloat16 and
+    float32; padding rows zero; each on the variant its dtype and widths
+    call for and within :func:`gmm_tolerance` of the float32 product."""
     import torch
 
+    from repro_torch.kernels import grouped_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     for dtype in (torch.bfloat16, torch.float32):
-        for e, c, d, f in ((128, 8, 2048, 768), (128, 64, 768, 2048), (16, 72, 200, 130),
-                           (1, 64, 96, 257), (3, 13, 1000, 1000)):
-            x = torch.from_numpy(rng.normal(size=(e * c, d)).astype(np.float32)).to(dev, dtype)
+        # bf16: the variant bfloat16 takes at these widths (float32: the CUDA cores)
+        for e, c, d, f, bf16 in ((128, 8, 2048, 768, "wgmma"), (128, 8, 768, 2048, "wgmma"),
+                                 (128, 64, 2048, 768, "wgmma"), (128, 64, 768, 2048, "wgmma"),
+                                 (3, 13, 200, 136, "wgmma"), (5, 72, 136, 200, "wgmma"),
+                                 (2, 264, 200, 136, "wgmma"), (16, 72, 200, 130, "simt"),
+                                 (1, 64, 96, 257, "simt"), (3, 13, 1000, 1000, "wgmma")):
+            x = torch.randn((e * c, d), generator=gen, device=dev).to(dtype)
             x.view(e, c, d)[:, c // 2:] = 0  # capacity padding
-            w = torch.from_numpy((rng.normal(size=(e, d, f)) / math.sqrt(d)).astype(np.float32))
-            w = w.to(dev, dtype)
-            err, ratio = gmm_error(x, w, c)
+            w = (torch.randn((e, d, f), generator=gen, device=dev) / math.sqrt(d)).to(dtype)
+            want = bf16 if dtype == torch.bfloat16 else "simt"
+            got, launched = grouped_matmul.grouped_matmul_launch(x, w, capacity=c)
+            if launched != want:
+                raise SystemExit(f"FAIL grouped_matmul {dtype} D={d} F={f}: the {launched} "
+                                 f"variant, expected {want}")
+            err, ratio = gmm_error(x, w, c, got=got)
             if ratio > 1.0:
-                raise SystemExit(f"FAIL grouped_matmul {dtype} E={e} C={c} D={d} F={f}: "
-                                 f"{ratio:.3f} x the tolerance (max |diff| {err})")
-            if (e, c) == (128, 8):  # the library's product against the same tolerance
-                _, lib = gmm_error(x, w, c, got=torch.bmm(x.view(e, c, d), w).view(e * c, f))
-                log(f"grouped_matmul {dtype} decode shape: kernel {ratio:.3f}, torch.bmm "
-                    f"{lib:.3f} x the tolerance; max |kernel - plain| {err}")
+                raise SystemExit(f"FAIL grouped_matmul {dtype} E={e} C={c} D={d} F={f} "
+                                 f"({want}): {ratio:.3f} x the tolerance (max |diff| {err})")
+            if e == 128:  # the library's product against the same tolerance
+                ref = torch.bmm(x.view(e, c, d), w).view(e * c, f)
+                _, lib = gmm_error(x, w, c, got=ref)
+                plain = grouped_matmul.grouped_matmul_plain(x, w, capacity=c)
+                log(f"grouped_matmul {dtype} C={c} {d}->{f} ({want}): kernel {ratio:.3f}, "
+                    f"torch.bmm {lib:.3f} x the tolerance; max |kernel - plain| {err}; "
+                    f"outputs equal to the plain version's: kernel "
+                    f"{float((got == plain).float().mean()):.4f}, torch.bmm "
+                    f"{float((ref == plain).float().mean()):.4f}")
 
 
 def probe_keys(rng, n, m, key_dtype, device):
@@ -387,8 +486,8 @@ def check_probe(dev, rng) -> None:
 
 
 def _kernel_table():
-    """name -> (module, launch function, plain function, signature of a
-    call, copy of a call's inputs)."""
+    """name -> (module, launch function (the one ``ops`` calls), plain
+    function, signature of a call, copy of a call's inputs)."""
     import torch
 
     from repro_torch.kernels import (
@@ -416,7 +515,7 @@ def _kernel_table():
         "join_probe": (merge_path, "join_probe_cuda", "join_probe_plain",
                        lambda a, b, empty: (a.shape[0], b.shape[0]),
                        lambda a, b, empty: ((a.clone(), b.clone(), empty), {})),
-        "grouped_matmul": (grouped_matmul, "grouped_matmul_cuda", "grouped_matmul_plain",
+        "grouped_matmul": (grouped_matmul, "grouped_matmul_launch", "grouped_matmul_plain",
                            lambda x, w, capacity: (x.shape[0], x.shape[1], w.shape[2], capacity,
                                                    str(x.dtype).replace("torch.", "")),
                            lambda x, w, capacity: ((x.clone(), w.clone()),
@@ -465,8 +564,8 @@ def _compare(name: str, args, kw) -> float:
 
     mod, launch, plain, _, _ = _kernel_table()[name]
     got = getattr(mod, launch)(*args, **kw)
-    if name == "grouped_matmul":
-        err, ratio = gmm_error(*args, kw["capacity"], got=got)
+    if name == "grouped_matmul":  # (output, variant)
+        err, ratio = gmm_error(*args, kw["capacity"], got=got[0])
         if ratio > 1.0:
             raise SystemExit(f"FAIL grouped_matmul: {ratio:.3f} x the tolerance")
         return err
@@ -481,6 +580,7 @@ def _compare(name: str, args, kw) -> float:
 
 
 MAX_ERR: dict[str, float] = {}
+PROFILES: dict[str, dict] = {}  # path -> device_profile of one run of it
 TIMES: dict[str, dict[str, dict]] = {}  # path -> kernel -> times
 
 
@@ -566,11 +666,15 @@ def time_call(name: str, path: str, key) -> dict:
                "join_probe": lambda: torch.searchsorted(args[1], args[0]),
                "grouped_matmul": bmm}.get(name)
     b_ms, b_by = _bound(name, args)
+    extra = {}
+    if name == "grouped_matmul":
+        x, w = args
+        extra["variant"] = mod.grouped_matmul_launch(x, w, **kw)[1]
+    ms, host_ms = cuda_ms(lambda: getattr(mod, launch)(*args, **kw), 20)
     return dict(
-        path=path, shape=list(key), calls_at_shape=calls,
-        ms=cuda_ms(lambda: getattr(mod, launch)(*args, **kw), 20),
-        plain_ms=cuda_ms(lambda: getattr(mod, plain)(*args, **kw), 20),
-        library_ms=cuda_ms(library, 20) if library else None,
+        path=path, shape=list(key), calls_at_shape=calls, **extra, ms=ms, host_ms=host_ms,
+        plain_ms=cuda_ms(lambda: getattr(mod, plain)(*args, **kw), 20)[0],
+        library_ms=cuda_ms(library, 20)[0] if library else None,
         bound_ms=b_ms, bound_by=b_by,
     )
 
@@ -615,6 +719,23 @@ def main_path(dev, rows, ordered) -> dict:
                 stats=res.stats.as_dict())
     log(f"main path ok: {json.dumps(info)}")
     return info, res, (uk, cnt, sums)
+
+
+def profile_aggregate(dev, rows, wall_s: float) -> dict:
+    """Phase 3's aggregate once more under ``torch.profiler``: the
+    merge-absorb kernels' device time summed over one SF-10 aggregate (and
+    the other kernels'), beside the profiled run's wall and phase 3's."""
+    import repro_torch
+
+    cfg = repro_torch.ExecConfig(**MAIN_CFG)
+    prof = device_profile("one SF-10 aggregate", lambda: repro_torch.aggregate(
+        {"orderkey": rows["orderkey"]}, by=repro_torch.KeySpec.of(orderkey=26),
+        values=rows["quantity"], aggs=("count", "sum"), cfg=cfg, device=dev),
+        {"merge_absorb": ("merge_absorb_tiles", "merge_absorb_fill"),
+         "segmented_combine": ("sc_pass",), "argsort": ("tile_sort", "merge_pass")})
+    prof["phase3_wall_ms"] = wall_s * 1e3
+    log(f"aggregate profile: {json.dumps(prof)}")
+    return prof
 
 
 def require_launches(path: str, launches: dict, kernels) -> None:
@@ -886,7 +1007,7 @@ def foil_path() -> dict:
     t = TIMES["bitonic foil"]["merge_absorb_bitonic"]
     busiest = max((k for k in sigs if list(k[:3]) == t["shape"]), key=lambda k: sigs[k][0])
     _, (args, kw) = sigs[busiest]
-    t["merge_path_ms"] = cuda_ms(lambda: merge_path.merge_absorb_cuda(*args, **kw), 20)
+    t["merge_path_ms"] = cuda_ms(lambda: merge_path.merge_absorb_cuda(*args, **kw), 20)[0]
     t["padded_rows"] = 2 * next_pow2(max(busiest[0], busiest[1]))
     for sig in sigs.values():
         sig[1] = None
@@ -925,6 +1046,50 @@ def routes():
         moe._router = orig
 
 
+def _bmm_products(x, w, *, capacity: int):
+    """``torch.bmm`` in place of the grouped-matmul kernel: the same
+    function, float32 sums (no reduced-precision reduction) rounded once."""
+    import torch
+
+    e, d, f = w.shape
+    mm = torch.backends.cuda.matmul
+    flag, mm.allow_bf16_reduced_precision_reduction = (
+        mm.allow_bf16_reduced_precision_reduction, False)
+    try:
+        return torch.bmm(x.view(e, capacity, d), w).view(e * capacity, f)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = flag
+
+
+@contextlib.contextmanager
+def library_products():
+    """The ``cuda`` backend with ``torch.bmm`` in place of the grouped-matmul
+    kernel (every other kernel as it is): the witness of what a second,
+    equally exact product does to the served model.  Yields a one-element
+    list that counts the products."""
+    import dataclasses
+
+    from repro_torch.core import dispatch
+
+    be, calls = dispatch.get_backend("cuda", "cuda"), [0]
+
+    def products(x, w, *, capacity):
+        calls[0] += 1
+        return _bmm_products(x, w, capacity=capacity)
+
+    dispatch._cache["cuda"] = dataclasses.replace(be, grouped_matmul=products)
+    try:
+        yield calls
+    finally:
+        dispatch._cache["cuda"] = be
+
+
+def route_share(ra, rb) -> float:
+    """The share of (token, layer, slot) routes two serve runs agree on."""
+    return float(np.mean(np.concatenate(
+        [(x == y).numpy().reshape(-1) for x, y in zip(ra, rb)])))
+
+
 def serve_pair(model, cfg, prompts, capture_as: str):
     """Serve ``prompts`` with the kernels (under ``capture``), then with
     the plain versions on the same weights, teacher-forced with the
@@ -943,20 +1108,20 @@ def serve_pair(model, cfg, prompts, capture_as: str):
     return a, b, launches, ra, rb
 
 
-def profile_serve(model, cfg, prompts) -> dict:
-    """Device time by kernel over a prefill and two decode steps
-    (``torch.profiler``), beside the host clock: where the serve step's time
-    goes and the device's idle share.  "not measured" where the profiler
-    saw no device time."""
+def device_profile(window: str, fn, kernels: dict) -> dict:
+    """Device time by kernel while ``fn`` runs (``torch.profiler``, the
+    device traced alone), beside the host clock: the device's busy time and
+    idle share, the top kernels, and for each entry of ``kernels`` (label
+    -> substrings of kernel names) the summed self device time and calls of
+    the kernels it names.  "not measured" where the profiler saw no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import generate
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _sync()
         t0 = time.perf_counter()
-        generate(model, cfg, prompts, gen=3, max_len=SERVE["prompt_len"] + 3, backend="cuda")
+        fn()
         _sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -966,15 +1131,34 @@ def profile_serve(model, cfg, prompts) -> dict:
                 return float(getattr(evt, attr))
         return 0.0
 
-    # kernel rows only: an operator's row repeats the time of the kernels it launched
+    # device rows only: the runtime's API calls (cudaLaunchKernel, ...) are host rows
     rows = sorted(((self_device_us(e), e.key, e.count) for e in prof.key_averages()
                    if e.device_type != torch.autograd.DeviceType.CPU), reverse=True)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     if busy_ms == 0:
-        return {"window": "prefill + 2 decode steps", "device_time": "not measured"}
-    return {"window": "prefill + 2 decode steps", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / wall_ms,
+        return {"window": window, "wall_ms": wall_ms, "device_time": "not measured"}
+    by_label = {}
+    for label, parts in kernels.items():
+        hit = [(us, count) for us, name, count in rows if any(p in name for p in parts)]
+        ms = sum(us for us, _ in hit) / 1e3
+        by_label[label] = {"device_ms": ms, "calls": sum(c for _, c in hit),
+                           "share_of_busy": ms / busy_ms}
+    return {"window": window, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms, "kernels": by_label,
             "top_kernels": [[name[:80], us / 1e3, count] for us, name, count in rows[:10]]}
+
+
+def profile_serve(model, cfg, prompts) -> dict:
+    """Device time by kernel over a prefill and two decode steps: where the
+    serve step's time goes, the grouped matmul's share of it, and the
+    device's idle share."""
+    from repro_torch.launch.serve import generate
+
+    return device_profile(
+        "prefill + 2 decode steps",
+        lambda: generate(model, cfg, prompts, gen=3, max_len=SERVE["prompt_len"] + 3,
+                         backend="cuda"),
+        {"grouped_matmul": ("grouped_matmul",), "argsort": ("tile_sort", "merge_pass")})
 
 
 def serve_path(dev) -> dict:
@@ -983,6 +1167,8 @@ def serve_path(dev) -> dict:
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
@@ -1021,12 +1207,28 @@ def serve_path(dev) -> dict:
     if not np.isfinite(a.logits).all():
         raise SystemExit("FAIL serve: non-finite logits")
     steps, layers = gen, cfg.n_layers
-    want = {"grouped_matmul": 3 * layers * steps, "argsort": layers * steps}
+    # every bfloat16 product on the tensor-core variant, none on the CUDA cores
+    want = {"grouped_matmul": 3 * layers * steps, "grouped_matmul_simt": 0,
+            "argsort": layers * steps}
     require_launches("serve", launches, ("grouped_matmul", "argsort"))
     if any(launches[k] != v for k, v in want.items()):
         raise SystemExit(f"FAIL serve: launches {launches}, expected {want}")
-    same_routes = float(np.mean(np.concatenate(
-        [(x == y).numpy().reshape(-1) for x, y in zip(ra, rb)])))
+    same_routes = route_share(ra, rb)
+    same_top1 = float(np.mean(a.tokens == p.tokens))
+    # the witness: torch.bmm for the grouped matmul, on the same forced tokens
+    ops.reset_launch_counts()
+    with routes() as rc, library_products() as products:
+        c = generate(model, cfg, prompts, backend="cuda", force=a.tokens[:, :-1],
+                     gen=gen, max_len=s + gen, keep_logits=True)
+    if products[0] != want["grouped_matmul"] or ops.LAUNCHES["grouped_matmul"]:
+        raise SystemExit(f"FAIL serve witness: {products[0]} torch.bmm products and "
+                         f"{ops.LAUNCHES['grouped_matmul']} kernel launches, expected "
+                         f"{want['grouped_matmul']} and 0")
+    witness = dict(equal_route_share=route_share(rc, rb),
+                   equal_top1_share=float(np.mean(c.tokens == p.tokens)),
+                   max_abs_logit_diff=float(np.abs(c.logits - p.logits).max()),
+                   kernel_equal_route_share=route_share(ra, rc),
+                   kernel_max_abs_logit_diff=float(np.abs(a.logits - c.logits).max()))
     info = dict(
         arch=cfg.name, layers=layers, dtype=cfg.dtype, batch=b, prompt_len=s, gen=gen,
         weight_bytes=weights, param_count=cfg.param_count(), init_s=init_s,
@@ -1036,13 +1238,21 @@ def serve_path(dev) -> dict:
         plain_prefill_s=p.t_prefill, plain_decode_ms_per_token=p.t_decode * 1e3,
         max_memory_allocated=peak, launches=launches,
         max_abs_logit_diff=float(np.abs(a.logits - p.logits).max()),
-        equal_top1_share=float(np.mean(a.tokens == p.tokens)),
-        equal_route_share=same_routes, fp32_gate=fp32,
+        equal_top1_share=same_top1, equal_route_share=same_routes,
+        library_witness=witness, fp32_gate=fp32,
         profile=profile_serve(model, cfg, prompts))
+    PROFILES["serve"] = info["profile"]
+    log(f"serve: {json.dumps(info)}")
+    for what, mine in (("route", same_routes), ("top1", same_top1)):
+        lib = witness[f"equal_{what}_share"]
+        if mine < lib - WITNESS_SLACK:
+            raise SystemExit(f"FAIL serve bf16: the kernel agrees with the plain versions on "
+                             f"{mine:.4f} of {what}s, torch.bmm on {lib:.4f} (slack "
+                             f"{WITNESS_SLACK})")
     del model
     settle("serve", ("grouped_matmul", "argsort"))
     torch.cuda.empty_cache()
-    log(f"serve ok: {json.dumps(info)}")
+    log("serve ok")
     return launches
 
 
@@ -1061,7 +1271,11 @@ def kernel_records(by_path: dict) -> list[dict]:
             launches=by_path[path][name], max_abs_err=MAX_ERR[name], max_abs_diff=MAX_ERR[name],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], path=path,
-            **{k: t[k] for k in ("by_shape", "merge_path_ms", "padded_rows") if k in t},
+            **{k: t[k] for k in ("host_ms", "by_shape", "merge_path_ms", "padded_rows",
+                                 "variant") if k in t},
+            **({"launches_simt": by_path[path]["grouped_matmul_simt"]}
+               if name == "grouped_matmul" else {}),
+            device_time_on_path=PROFILES.get(path, {}).get("kernels", {}).get(name),
             other_shapes=[v[name] for p, v in TIMES.items() if p != path and name in v],
             launches_by_path={p: v[name] for p, v in by_path.items()},
             checked_shapes={p: [list(k) + [calls] for k, (calls, _) in sigs[name].items()]
@@ -1104,6 +1318,7 @@ def main() -> int:
     log(f"SF10 lineitem: {rows['orderkey'].size} rows made in {time.perf_counter() - t0:.1f} s")
     main, L, q18 = main_path(dev, rows, ordered)
     settle("aggregate", AGG_KERNELS, keep=("merge_absorb",))  # phase 8 replays them
+    PROFILES["aggregate"] = profile_aggregate(dev, rows, main["wall_s"])
     del ordered
     L20, q20 = u64_path(dev, rng)
     settle("u64 aggregate")

@@ -97,11 +97,18 @@ I = ctypes.c_int
 LL = ctypes.c_longlong
 
 
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
 def fn(name: str, symbol: str, argtypes, restype=I):
-    """A C function of ``csrc/<name>.cu`` with its signature declared."""
-    f = getattr(lib(name), symbol)
-    f.argtypes = argtypes
-    f.restype = restype
+    """A C function of ``csrc/<name>.cu`` with its signature declared (kept
+    after the first call: the wrappers run on every launch)."""
+    f = _fns.get((name, symbol))
+    if f is None:
+        f = getattr(lib(name), symbol)
+        f.argtypes = argtypes
+        f.restype = restype
+        _fns[(name, symbol)] = f
     return f
 
 

@@ -5,9 +5,13 @@ Counterpart of :mod:`repro.kernels.grouped_matmul` (reached through
 ``ops.moe_grouped_matmul``): ``out[e*C + i] = x[e*C + i] @ w[e]`` for the
 capacity-padded, expert-contiguous rows x ``(E*C, D)`` and the expert
 weights w ``(E, D, F)``, bfloat16 or float32 in, float32 accumulation, the
-output in x's dtype.  Any capacity C works: the kernel's row tiles never
+output in x's dtype.  Any capacity C works: a kernel's tiles never
 straddle two experts, so the TPU kernel's ``C % block_m == 0`` rule (a TPU
 tiling rule) has no counterpart.
+
+The kernel has two variants (:func:`variant`): bfloat16 with D and F
+multiples of 8 runs on the tensor cores (``wgmma``, operands staged by
+TMA); float32, and bfloat16 widths TMA cannot take, run on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -16,8 +20,27 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"simt": 0, "wgmma": 1}
 _ARGS = [_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.LL, _build.LL, _build.I,
-         _build.P]
+         _build.I, _build.I, _build.P]
+
+
+def variant(dtype: torch.dtype, d: int, f: int, c: int, *, aligned: bool = True):
+    """``(name, tile)`` of the kernel variant that takes an ``(E*c, d) @ (E,
+    d, f)`` product: ``("wgmma", N tile)`` on the tensor cores for bfloat16
+    with ``d`` and ``f`` multiples of 8 (TMA's 16-byte strides) and 16-byte
+    aligned tensors, else ``("simt", row tile)`` on the CUDA cores.  The
+    tensor cores' N tile is the smallest power of two from 8 to 256 that
+    covers ``c`` (256 in several tiles above); the CUDA cores' row tile the
+    smallest of 8, 16, 32 or 64.  The wrapper passes this choice to the C
+    entry point, which refuses a tensor-core launch its inputs do not
+    allow."""
+    if dtype == torch.bfloat16 and d > 0 and d % 8 == 0 and f % 8 == 0 and aligned:
+        n = 8
+        while n < 256 and n < c:
+            n *= 2
+        return "wgmma", n
+    return "simt", next(t for t in (8, 16, 32, 64) if c <= t or t == 64)
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor, capacity: int) -> None:
@@ -41,7 +64,15 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> 
 
 def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> torch.Tensor:
     """Launch the grouped-matmul kernel on contiguous CUDA tensors of one
-    dtype (bfloat16 or float32).  An empty output launches nothing."""
+    dtype (bfloat16 or float32), in the variant :func:`variant` names.  An
+    empty output launches nothing."""
+    return grouped_matmul_launch(x, w, capacity=capacity)[0]
+
+
+def grouped_matmul_launch(x: torch.Tensor, w: torch.Tensor, *,
+                          capacity: int) -> tuple[torch.Tensor, str | None]:
+    """:func:`grouped_matmul_cuda`'s output and the name of the variant it
+    launched (None for an empty output)."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"grouped matmul: dtype {x.dtype} is not bfloat16 or float32")
     _build.check(x, x.dtype, "x", ndim=2)
@@ -50,9 +81,14 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> t
     e, d, f = w.shape
     out = torch.empty((e * capacity, f), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out
+        return out, None
+    name, tile = variant(x.dtype, d, f, capacity, aligned=is_aligned(x, w))
     fn = _build.fn("grouped_matmul", "repro_grouped_matmul", _ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), e, capacity, d, f, _DTYPES[x.dtype],
-             _build.stream_of(x))
+             _VARIANTS[name], tile, _build.stream_of(x))
     _build.raise_on(err, "grouped_matmul")
-    return out
+    return out, name
+
+
+def is_aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)

@@ -4,10 +4,12 @@ each beside its plain version.
 
 Counterpart of :mod:`repro.kernels.merge_path`:
 
-* ``merge_path_tiles`` with the compaction of ``ops.merge_absorb_sorted``:
-  every output row finds its merge-path split (A wins ties, duplicates
-  allowed on either side), then the segmented combine compacts the merged
-  rows to capacity ``|a|+|b|``;
+* ``merge_path_tiles`` with the compaction of ``ops.merge_absorb_sorted``,
+  in one fused pass: each tile of 2,048 output rows merges its slices of
+  ``a`` and ``b`` (A wins ties, duplicates allowed on either side) in
+  shared memory and combines equal keys with a block scan and a decoupled
+  look-back across tiles, writing the groups compacted to capacity
+  ``|a|+|b|``; a second small kernel fills the rows past the last group;
 * ``merge_path_probe_tiles`` with ``ops.join_probe``: each sorted left key
   finds its lower bound in the sorted right keys, clipped into the right
   side's rows, and a hit flag (EMPTY never hits).
@@ -25,7 +27,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.segmented_reduce import scratch_for
 
 _P, _I, _LL = _build.P, _build.I, _build.LL
-_ARGS = [_P] * 5 + [_LL] + [_P] * 5 + [_LL, _I, _I, _I, _LL] + [_P] * 12
+_ARGS = [_P] * 5 + [_LL] + [_P] * 5 + [_LL, _I, _I, _I, _LL] + [_P] * 7
 _PROBE_ARGS = [_P, _LL, _P, _LL, _LL, _P, _P, _P]
 
 
@@ -39,8 +41,8 @@ def _alloc(like: AggState, n: int) -> AggState:
 
 def merge_absorb_cuda(a: AggState, b: AggState, *, assume_unique: bool = False) -> AggState:
     """Launch the merge-absorb kernel on two key-sorted CUDA states.
-    ``assume_unique`` is accepted for interface parity: the combine that
-    follows the merge is exact whether or not the inputs hold duplicates."""
+    ``assume_unique`` is accepted for interface parity: the combine fused
+    into the merge is exact whether or not the inputs hold duplicates."""
     del assume_unique
     _build.check_state(a, "a")
     _build.check_state(b, "b")
@@ -51,7 +53,6 @@ def merge_absorb_cuda(a: AggState, b: AggState, *, assume_unique: bool = False) 
         )
     na, nb = a.capacity, b.capacity
     f = _build.fn("merge_path", "repro_merge_absorb", _ARGS)
-    merged = _alloc(a, na + nb)
     out = _alloc(a, na + nb)
     scratch = scratch_for("merge_path", "repro_merge_absorb_scratch_bytes", na + nb, a)
     ws, wm, wx = a.widths
@@ -60,8 +61,8 @@ def merge_absorb_cuda(a: AggState, b: AggState, *, assume_unique: bool = False) 
         return [s.keys.data_ptr(), s.count.data_ptr(), s.sum.data_ptr(),
                 s.min.data_ptr(), s.max.data_ptr()]
 
-    err = f(*ptrs(a), na, *ptrs(b), nb, ws, wm, wx, a.empty, *ptrs(merged), *ptrs(out),
-            scratch.data_ptr(), _build.stream_of(a.keys))
+    err = f(*ptrs(a), na, *ptrs(b), nb, ws, wm, wx, a.empty, *ptrs(out), scratch.data_ptr(),
+            _build.stream_of(a.keys))
     _build.raise_on(err, "merge_absorb")
     return out
 

@@ -25,8 +25,10 @@ from repro_torch.kernels import (
     segmented_reduce,
 )
 
+# "grouped_matmul" counts the tensor-core variant, "grouped_matmul_simt" the
+# CUDA-core one (grouped_matmul.variant)
 LAUNCHES = {"argsort": 0, "segmented_combine": 0, "merge_absorb": 0, "join_probe": 0,
-            "grouped_matmul": 0, "merge_absorb_bitonic": 0}
+            "grouped_matmul": 0, "grouped_matmul_simt": 0, "merge_absorb_bitonic": 0}
 
 
 def reset_launch_counts() -> None:
@@ -91,7 +93,7 @@ def moe_grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> to
     float32 accumulation, the output in x's dtype."""
     if x.device.type == "cpu":
         return grouped_matmul.grouped_matmul_plain(x, w, capacity=capacity)
-    out = grouped_matmul.grouped_matmul_cuda(x, w, capacity=capacity)
-    if out.numel():
-        LAUNCHES["grouped_matmul"] += 1
+    out, name = grouped_matmul.grouped_matmul_launch(x, w, capacity=capacity)
+    if name is not None:
+        LAUNCHES["grouped_matmul" if name == "wgmma" else "grouped_matmul_simt"] += 1
     return out

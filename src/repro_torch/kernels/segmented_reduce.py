@@ -21,7 +21,8 @@ _ARGS = [_build.P, _build.LL, _build.LL, _build.P, _build.P, _build.I, _build.P,
 
 
 def scratch_for(name: str, symbol: str, n: int, state: AggState) -> torch.Tensor:
-    """Device scratch for the block carries of a combine over ``n`` rows."""
+    """Device scratch of a combine over ``n`` rows (its block carries, or
+    the merge-absorb's tile status words), sized by ``symbol``."""
     f = _build.fn(name, symbol, [_build.LL, _build.I], _build.LL)
     nbytes = f(n, 1 + sum(state.widths))
     return torch.empty((nbytes,), dtype=torch.uint8, device=state.device)

@@ -103,6 +103,32 @@ def test_merge_absorb_kernel_matches_plain(dev, na, nb, assume_unique, key_dtype
                  merge_path.merge_absorb_plain(a, b, assume_unique=assume_unique))
 
 
+# The cases a look-back across tiles of 2,048 output rows gets wrong: one key
+# for every row (a group spanning every tile), an all-EMPTY side, empty
+# sides, totals of a tile - 1, a tile and a tile + 1 (one and two tiles),
+# very unequal sides, and min/max planes whose neutral values are +-inf.
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("na,nb,domain,empty_a,empty_b,widths", [
+    (70_000, 5_000, 1, 0.0, 0.0, (1, 1, 1)),       # one group spans every tile
+    (9_000, 3_000, 4, 0.0, 0.3, (1, 0, 0)),        # four groups of some 3,000 rows
+    (6_000, 2_500, 50, 1.0, 0.1, (1, 1, 1)),       # A all EMPTY
+    (2_500, 6_000, 50, 0.1, 1.0, (1, 1, 1)),       # B all EMPTY
+    (0, 5_000, 900, 0.0, 0.2, (2, 2, 2)), (5_000, 0, 900, 0.2, 0.0, (2, 2, 2)),
+    (1_500, 547, 300, 0.1, 0.1, (1, 0, 0)), (1_024, 1_024, 300, 0.1, 0.1, (1, 0, 0)),
+    (2_000, 49, 300, 0.1, 0.1, (1, 0, 0)), (3_000, 1_095, 600, 0.1, 0.1, (0, 2, 2)),
+    (3_000, 1_096, 600, 0.1, 0.1, (0, 2, 2)), (3_000, 1_097, 600, 0.1, 0.1, (0, 2, 2)),
+    (5, 70_000, 20_000, 0.0, 0.1, (4, 0, 0)), (200_000, 3, 50_000, 0.1, 0.0, (4, 0, 0)),
+    (40_000, 40_000, 2_000, 0.05, 0.05, (2, 2, 2)),  # min/max planes, many tiles
+])
+def test_merge_absorb_kernel_edge_cases(dev, na, nb, domain, empty_a, empty_b, widths,
+                                        key_dtype):
+    a = _state(dev, na, key_dtype, domain, widths=widths, empty_frac=empty_a)
+    b = _state(dev, nb, key_dtype, domain, widths=widths, empty_frac=empty_b)
+    got = merge_path.merge_absorb_cuda(a, b)
+    torch.cuda.synchronize()
+    _assert_same(got, merge_path.merge_absorb_plain(a, b))
+
+
 def _probe_pair(dev, n, m, key_dtype):
     """Sorted, duplicate-free key vectors with EMPTY tails: ``b`` holds
     ``m`` valid keys, ``a`` about ``n`` and shares b's first and last key
@@ -148,8 +174,11 @@ def test_wrappers_launch_on_cuda_and_count(dev):
     ops.join_probe(st.keys, st.keys, st.empty)
     ops.merge_absorb_sorted_bitonic(st, st)
     ops.moe_grouped_matmul(st.sum.reshape(10, 100), st.sum.reshape(2, 100, 5), capacity=5)
+    ops.moe_grouped_matmul(st.sum.reshape(10, 100)[:, :96].contiguous().bfloat16(),
+                           torch.ones((2, 96, 8), dtype=torch.bfloat16, device=dev), capacity=5)
     assert ops.LAUNCHES == {"argsort": 1, "segmented_combine": 1, "merge_absorb": 1,
-                            "join_probe": 1, "grouped_matmul": 1, "merge_absorb_bitonic": 1}
+                            "join_probe": 1, "grouped_matmul": 1, "grouped_matmul_simt": 1,
+                            "merge_absorb_bitonic": 1}
 
 
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
@@ -216,16 +245,29 @@ def gmm_error(got, x, w, c) -> float:
     return float(((got.float() - want32).abs() / tol).max())
 
 
+# the four serve shapes (wg/wi 2048 -> 768 and wo 768 -> 2048 at decode's
+# C = 8 and prefill's C = 64); capacities 8, 13, 64, 72 and 264 (two N
+# tiles); D and F multiples of 8 but not of 64; the CUDA-core variant's
+# bfloat16 widths (F = 130, 257) and float32; bf16: the variant bfloat16
+# takes at these widths (float32 always runs on the CUDA cores)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("e,c,d,f", [(4, 8, 256, 384), (3, 64, 200, 130), (2, 72, 96, 257),
-                                     (1, 33, 2048, 768)])
-def test_grouped_matmul_kernel_matches_plain(dev, e, c, d, f, dtype):
+@pytest.mark.parametrize("e,c,d,f,bf16", [
+    (128, 8, 2048, 768, "wgmma"), (128, 8, 768, 2048, "wgmma"), (128, 64, 2048, 768, "wgmma"),
+    (128, 64, 768, 2048, "wgmma"), (4, 8, 256, 384, "wgmma"), (3, 13, 200, 136, "wgmma"),
+    (5, 72, 136, 200, "wgmma"), (2, 264, 200, 136, "wgmma"), (3, 64, 200, 130, "simt"),
+    (2, 72, 96, 257, "simt"), (1, 33, 2048, 768, "wgmma"),
+])
+def test_grouped_matmul_kernel_matches_plain(dev, e, c, d, f, bf16, dtype):
     x = torch.from_numpy(RNG.normal(size=(e * c, d)).astype(np.float32)).to(dev, dtype)
-    w = torch.from_numpy((RNG.normal(size=(e, d, f)) / np.sqrt(d)).astype(np.float32))
-    w = w.to(dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(e * c + d + f)  # serve-size weights on the card
+    w = (torch.randn((e, d, f), generator=gen, device=dev) / np.sqrt(d)).to(dtype)
     x[: c // 2] = 0  # capacity padding rows
-    got = grouped_matmul.grouped_matmul_cuda(x, w, capacity=c)
+    ops.reset_launch_counts()
+    got = ops.moe_grouped_matmul(x, w, capacity=c)
     torch.cuda.synchronize()
+    tensor_cores = dtype == torch.bfloat16 and bf16 == "wgmma"
+    assert ops.LAUNCHES["grouped_matmul" if tensor_cores else "grouped_matmul_simt"] == 1
+    assert ops.LAUNCHES["grouped_matmul_simt" if tensor_cores else "grouped_matmul"] == 0
     want32 = torch.einsum("ecd,edf->ecf", x.reshape(e, c, d).float(), w.float()).reshape(e * c, f)
     assert got.dtype == dtype and got.shape == (e * c, f)
     assert torch.equal(grouped_matmul.grouped_matmul_plain(x, w, capacity=c), want32.to(dtype))
@@ -261,7 +303,7 @@ def test_serve_full_width_two_layers_on_the_card_matches_cpu(dev):
     prompts = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(5))
     ops.reset_launch_counts()
     a = generate(card, cfg, prompts, gen=4, max_len=36, keep_logits=True)
-    assert ops.LAUNCHES["grouped_matmul"] == 3 * 2 * 4 and ops.LAUNCHES["argsort"] == 2 * 4
+    assert ops.LAUNCHES["grouped_matmul_simt"] == 3 * 2 * 4 and ops.LAUNCHES["argsort"] == 2 * 4
     b = generate(host, cfg, prompts, gen=4, max_len=36, force=a.tokens[:, :-1],
                  keep_logits=True)
     np.testing.assert_allclose(a.logits, b.logits, rtol=1e-3, atol=1e-3)

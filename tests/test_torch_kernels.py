@@ -18,7 +18,7 @@ import torch
 from repro.core import sorted_ops as jso
 from repro.core.types import key_dtype_context, rows_to_state as j_rows_to_state
 from repro_torch.core.types import FIELDS, AggState, state_from_numpy, state_to_numpy
-from repro_torch.kernels import ops
+from repro_torch.kernels import grouped_matmul, ops
 
 RNG = np.random.default_rng(11)
 
@@ -187,3 +187,25 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(call):
     with pytest.raises(ValueError, match="CUDA"):
         call(_meta_state())
     assert ops.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# which grouped-matmul variant a product takes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,d,f,c,aligned,want", [
+    (torch.bfloat16, 2048, 768, 8, True, ("wgmma", 8)),      # decode's wg/wi
+    (torch.bfloat16, 768, 2048, 64, True, ("wgmma", 64)),    # prefill's wo
+    (torch.bfloat16, 200, 136, 13, True, ("wgmma", 16)),     # multiples of 8, not of 64
+    (torch.bfloat16, 136, 200, 72, True, ("wgmma", 128)),
+    (torch.bfloat16, 200, 136, 264, True, ("wgmma", 256)),   # two N tiles
+    (torch.bfloat16, 200, 130, 64, True, ("simt", 64)),      # F no multiple of 8
+    (torch.bfloat16, 100, 8, 5, True, ("simt", 8)),          # D no multiple of 8
+    (torch.bfloat16, 0, 8, 8, True, ("simt", 8)),            # no depth: nothing for TMA
+    (torch.bfloat16, 2048, 768, 8, False, ("simt", 8)),      # not 16-byte aligned
+    (torch.float32, 2048, 768, 8, True, ("simt", 8)),        # wgmma takes no float32
+    (torch.float32, 768, 2048, 33, True, ("simt", 64)),
+])
+def test_grouped_matmul_variant_rule(dtype, d, f, c, aligned, want):
+    assert grouped_matmul.variant(dtype, d, f, c, aligned=aligned) == want
