@@ -10,8 +10,11 @@ with a non-zero exit):
 2. hold each kernel against its plain PyTorch version on the card on
    seeded edge cases (u32- and u64-mapped keys, interior EMPTY rows and
    duplicates, unequal merge lengths, both ``assume_unique`` settings,
-   1- and 4-wide sum planes; the cases a look-back across the
-   merge-absorb's tiles gets wrong; the probe's EMPTY tails, hits at the
+   1- and 4-wide sum planes; the argsort at every edge of its size
+   classes, all keys equal and all EMPTY among them; the combine at a
+   tile of 2,048 rows - 1, + 0 and + 1 and under one group; the cases a
+   look-back across the merge-absorb's tiles gets wrong (the combine runs
+   the same pass); the probe's EMPTY tails, hits at the
    right side's ends, keys above it, empty sides; the grouped matmul at
    the four serve shapes, capacities 8 to 264 and widths that are no
    multiple of 64, on the variant its dtype and widths call for);
@@ -62,8 +65,11 @@ it, each kernel must equal its plain version on every one of them, and
 the kernels are timed beside their plain versions and library calls on
 the inputs of the shape that carried most rows through them (``settle``):
 the aggregate kernels on phase 3's, the probe on phase 6's, the bitonic
-foil on phase 8's, the grouped matmul on phase 9's (every shape), with the
-other paths' times beside.  The last lines are the kernels' JSON record,
+foil on phase 8's, the grouped matmul on phase 9's, the argsort and the
+grouped matmul at every shape a path gave them, with the other paths'
+times beside, and the operations one call puts on the card
+(``torch.profiler``; the argsort must be one kernel up to 65,536 keys and
+the combine two kernels and a memset).  The last lines are the kernels' JSON record,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -102,6 +108,8 @@ KERNELS = {  # name -> (CUDA source, the TPU kernel it replaces)
     "merge_absorb_bitonic": ("src/repro_torch/kernels/csrc/merge_aggregate.cu",
                              "src/repro/kernels/merge_aggregate.py:75"),
 }
+# the argsort's kernels by name (csrc/argsort.cu), for the profiler
+ARGSORT_KERNELS = ("sort_warp", "sort_block", "sort_cluster", "merge_pass")
 RECORD_PATH = {"join_probe": "merge_join", "grouped_matmul": "serve",
                "merge_absorb_bitonic": "bitonic foil"}  # else "aggregate"
 SERVE = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=256, gen=16)
@@ -274,19 +282,20 @@ def check_kernels(dev, B: int, M: int, P: int) -> None:
     from repro_torch.kernels import bitonic_sort, merge_path, segmented_reduce
 
     rng = np.random.default_rng(SEED)
-    for kd in (np.uint32, np.uint64):
-        keys = make_state(rng, B, kd, B // 4, 0.2, (0, 0, 0), sort=False, device=dev).keys
-        if not torch.equal(bitonic_sort.argsort_cuda(keys), bitonic_sort.argsort_plain(keys)):
-            raise SystemExit(f"FAIL argsort {np.dtype(kd)}: permutation differs")
+    check_argsort(dev, rng, B)
     for kd in (np.uint32, np.uint64):
         for widths in ((1, 0, 0), (2, 2, 2), (0, 0, 0), (4, 0, 0)):
             st = make_state(rng, B, kd, B // 8, 0.1, widths, device=dev)
             state_diff(f"segmented_combine {np.dtype(kd)} {widths}",
                        segmented_reduce.segmented_combine_cuda(st),
                        segmented_reduce.segmented_combine_plain(st))
-    skew = make_state(rng, B, np.uint32, 1, 0.0, (1, 1, 1), device=dev)  # one group spans all
-    state_diff("segmented_combine skew", segmented_reduce.segmented_combine_cuda(skew),
-               segmented_reduce.segmented_combine_plain(skew))
+    # one group spans all tiles; a tile of the fused pass - 1, a tile, a tile + 1
+    for n, domain in ((B, 1), (2047, 300), (2048, 300), (2049, 300), (2049, 1)):
+        st = make_state(rng, n, np.uint32, domain, 0.1 if domain > 1 else 0.0, (1, 1, 1),
+                        device=dev)
+        state_diff(f"segmented_combine {n} rows, domain {domain}",
+                   segmented_reduce.segmented_combine_cuda(st),
+                   segmented_reduce.segmented_combine_plain(st))
     for na, nb, fill in ((M + 2 * B, B, 0.15), (M + P, P, 0.5)):
         for kd in (np.uint32, np.uint64):
             for uniq in (False, True):
@@ -301,6 +310,29 @@ def check_kernels(dev, B: int, M: int, P: int) -> None:
     check_bitonic(dev, rng)
     check_grouped_matmul(dev)
     log("kernels ok on the edge cases")
+
+
+def check_argsort(dev, rng, B: int) -> None:
+    """The argsort kernel equals its plain version at every edge of its size
+    classes (``bitonic_sort.plan``: the warp's 32, the block's 1,024, the
+    clusters' CTAs up to the batch B = 65,536, the large class above), u32-
+    and u64-mapped keys: duplicates, 30% interior EMPTY rows, all keys equal
+    (the order across CTAs and clusters is the rows') and all EMPTY."""
+    import torch
+
+    from repro_torch.kernels import bitonic_sort
+
+    for n in (1, 32, 33, 1024, 1025, 2048, 2049, 8191, 8192, 8193, B - 1, B, B + 1, 1 << 20):
+        for kd in (np.uint32, np.uint64):
+            for what, domain, empty in (("duplicates", max(1, n // 4), 0.0),
+                                        ("30% empty", max(1, n // 4), 0.3),
+                                        ("all equal", 1, 0.0), ("all empty", 1, 1.0)):
+                keys = make_state(rng, n, kd, domain, empty, (0, 0, 0), sort=False,
+                                  device=dev).keys
+                if not torch.equal(bitonic_sort.argsort_cuda(keys),
+                                   bitonic_sort.argsort_plain(keys)):
+                    raise SystemExit(f"FAIL argsort n={n} {np.dtype(kd)} {what} "
+                                     f"{bitonic_sort.plan(n)}: permutation differs")
 
 
 def check_merge_lookback(dev, rng, P: int) -> None:
@@ -646,7 +678,7 @@ def time_kernel(name: str, path: str) -> dict:
 
     key = max(sigs, key=lambda k: (sigs[k][0] * rows(k), k))
     out = time_call(name, path, key)
-    if name == "grouped_matmul":  # the decode and prefill shapes
+    if name in ("grouped_matmul", "argsort"):  # every shape (decode's and prefill's)
         out["by_shape"] = [time_call(name, path, k) for k in sorted(sigs, key=str)]
     return out
 
@@ -676,7 +708,37 @@ def time_call(name: str, path: str, key) -> dict:
         plain_ms=cuda_ms(lambda: getattr(mod, plain)(*args, **kw), 20)[0],
         library_ms=cuda_ms(library, 20)[0] if library else None,
         bound_ms=b_ms, bound_by=b_by,
+        on_card_per_call=on_card(name, key, lambda: getattr(mod, launch)(*args, **kw)),
     )
+
+
+# the operations one call may put on the card: (kernels, memsets, copies);
+# the argsort up to 65,536 keys one kernel, the combine two kernels and a
+# memset
+ON_CARD = {"argsort": (1, 0, 0), "segmented_combine": (2, 1, 0)}
+
+
+def on_card(name: str, key, fn, reps: int = 20) -> dict:
+    """The operations one call of ``fn`` puts on the card (``torch.profiler``
+    over ``reps`` calls): each one's device ms and count a call, and the
+    distinct kernels, memsets and copies.  The profiler may drop events, so
+    counts a call can fall below 1; the distinct operations are what a call
+    launches.  Fails where a kernel of ``ON_CARD`` puts more on the card
+    than its design does."""
+    prof = device_profile(f"{name} {list(key)}", lambda: [fn() for _ in range(reps)], {})
+    if "top_kernels" not in prof:
+        return {"device_time": "not measured"}
+    ops = [[op, ms / reps, count / reps] for op, ms, count in prof["top_kernels"]]
+    kinds = {"memsets": sum(op.startswith("Memset") for op, _, _ in ops),
+             "copies": sum(op.startswith("Memcpy") for op, _, _ in ops)}
+    kinds["kernels"] = len(ops) - kinds["memsets"] - kinds["copies"]
+    want = ON_CARD.get(name)
+    if want and 0 < key[0] and (name != "argsort" or key[0] <= 1 << 16):
+        got = (kinds["kernels"], kinds["memsets"], kinds["copies"])
+        if got != want:
+            raise SystemExit(f"FAIL {name} {list(key)}: (kernels, memsets, copies) a call "
+                             f"{got}, the design's {want}")
+    return {"ops": ops, **kinds}
 
 
 # ---------------------------------------------------------------------------
@@ -731,8 +793,9 @@ def profile_aggregate(dev, rows, wall_s: float) -> dict:
     prof = device_profile("one SF-10 aggregate", lambda: repro_torch.aggregate(
         {"orderkey": rows["orderkey"]}, by=repro_torch.KeySpec.of(orderkey=26),
         values=rows["quantity"], aggs=("count", "sum"), cfg=cfg, device=dev),
-        {"merge_absorb": ("merge_absorb_tiles", "merge_absorb_fill"),
-         "segmented_combine": ("sc_pass",), "argsort": ("tile_sort", "merge_pass")})
+        {"merge_absorb": ("merge_absorb_tiles<true>", "merge_absorb_fill<true>"),
+         "segmented_combine": ("merge_absorb_tiles<false>", "merge_absorb_fill<false>"),
+         "argsort": ARGSORT_KERNELS})
     prof["phase3_wall_ms"] = wall_s * 1e3
     log(f"aggregate profile: {json.dumps(prof)}")
     return prof
@@ -1158,7 +1221,7 @@ def profile_serve(model, cfg, prompts) -> dict:
         "prefill + 2 decode steps",
         lambda: generate(model, cfg, prompts, gen=3, max_len=SERVE["prompt_len"] + 3,
                          backend="cuda"),
-        {"grouped_matmul": ("grouped_matmul",), "argsort": ("tile_sort", "merge_pass")})
+        {"grouped_matmul": ("grouped_matmul",), "argsort": ARGSORT_KERNELS})
 
 
 def serve_path(dev) -> dict:
@@ -1272,7 +1335,7 @@ def kernel_records(by_path: dict) -> list[dict]:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], path=path,
             **{k: t[k] for k in ("host_ms", "by_shape", "merge_path_ms", "padded_rows",
-                                 "variant") if k in t},
+                                 "variant", "on_card_per_call") if k in t},
             **({"launches_simt": by_path[path]["grouped_matmul_simt"]}
                if name == "grouped_matmul" else {}),
             device_time_on_path=PROFILES.get(path, {}).get("kernels", {}).get(name),

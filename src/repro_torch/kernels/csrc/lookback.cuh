@@ -1,5 +1,5 @@
-// Single-pass decoupled look-back across the tiles of one launch, for
-// the fused merge-absorb (merge_path.cu).
+// Single-pass decoupled look-back across the tiles of one launch, and the
+// block scan before it, for the fused merge-absorb pass (merge_absorb.cuh).
 //
 // Each tile publishes, for each scanned column, one 64-bit status word:
 // bits 62-63 its state (0 nothing yet, 1 LOCAL: the tile's own aggregate,
@@ -62,23 +62,75 @@ __device__ __forceinline__ uint32_t lb_warp_lookback(const unsigned long long* w
   }
 }
 
-// Exclusive segmented scan over the block, one (flag, value) per thread
-// (the operator of block_seg_scan): (ef, ev) is what the threads before
-// this one hold, (tf, tv) the whole block's.  Every thread must call it.
-template <int NT>
-__device__ __forceinline__ void block_seg_scan_exclusive(int op, bool f, uint32_t v, bool& ef,
-                                                         uint32_t& ev, bool& tf, uint32_t& tv) {
-  __shared__ uint32_t s_v[NT];
-  __shared__ int s_f[NT];
-  block_seg_scan<NT>(op, f, v);
-  s_v[threadIdx.x] = v;
-  s_f[threadIdx.x] = f;
+// Exclusive scan over the block of NV columns that share one segment flag,
+// one (flag, values) per thread: (fl, vl) . (fr, vr) = (fl | fr, fr ? vr :
+// op(vl, vr)) for a segmented column, op(vl, vr) for the columns whose bit
+// is set in `unsegmented`.  (ef, ev) is what the threads before this one
+// hold, (tf, tv) the whole block's.  A warp scans by shuffles; after one
+// barrier every warp scans the warps' totals by shuffles too (no second
+// barrier).  Every thread must call it; a barrier must separate two calls.
+template <int NT, int NV>
+__device__ __forceinline__ void block_scan_exclusive(const int (&op)[NV], unsigned unsegmented,
+                                                     bool f, uint32_t (&v)[NV], bool& ef,
+                                                     uint32_t (&ev)[NV], bool& tf,
+                                                     uint32_t (&tv)[NV]) {
+  constexpr int NW = NT / 32;
+  __shared__ uint32_t s_v[NV][NW];
+  __shared__ int s_f[NW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the value of (fl, l) . (fr, r) in column k
+  auto apply = [&](int k, bool fr, uint32_t l, uint32_t r) {
+    return fr && !(unsegmented >> k & 1u) ? r : combine_bits(op[k], l, r);
+  };
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {  // inclusive within the warp
+    const bool fu = __shfl_up_sync(0xffffffffu, (int)f, d) != 0;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const uint32_t vu = __shfl_up_sync(0xffffffffu, v[k], d);
+      if (lane >= d) v[k] = apply(k, f, vu, v[k]);
+    }
+    if (lane >= d) f = f || fu;
+  }
+  const bool xf = (__shfl_up_sync(0xffffffffu, (int)f, 1) != 0) && lane > 0;
+  uint32_t xv[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const uint32_t up = __shfl_up_sync(0xffffffffu, v[k], 1);
+    xv[k] = lane > 0 ? up : identity_bits(op[k]);
+  }
+  if (lane == 31) {
+    s_f[warp] = f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) s_v[k][warp] = v[k];
+  }
   __syncthreads();
-  ef = threadIdx.x > 0 && s_f[threadIdx.x - 1] != 0;
-  ev = threadIdx.x > 0 ? s_v[threadIdx.x - 1] : identity_bits(op);
-  tf = s_f[NT - 1] != 0;
-  tv = s_v[NT - 1];
-  __syncthreads();  // the shared values may be reused by the next call
+  bool wf = lane < NW ? s_f[lane] != 0 : false;
+  uint32_t wv[NV], pv[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) wv[k] = lane < NW ? s_v[k][lane] : identity_bits(op[k]);
+#pragma unroll
+  for (int d = 1; d < NW; d <<= 1) {
+    const bool fu = __shfl_up_sync(0xffffffffu, (int)wf, d) != 0;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const uint32_t vu = __shfl_up_sync(0xffffffffu, wv[k], d);
+      if (lane >= d) wv[k] = apply(k, wf, vu, wv[k]);
+    }
+    if (lane >= d) wf = wf || fu;
+  }
+  const int before = warp > 0 ? warp - 1 : 0;
+  const bool pf = (__shfl_sync(0xffffffffu, (int)wf, before) != 0) && warp > 0;
+  tf = __shfl_sync(0xffffffffu, (int)wf, NW - 1) != 0;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const uint32_t x = __shfl_sync(0xffffffffu, wv[k], before);
+    pv[k] = warp > 0 ? x : identity_bits(op[k]);
+    tv[k] = __shfl_sync(0xffffffffu, wv[k], NW - 1);
+  }
+  ef = pf || xf;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) ev[k] = apply(k, xf, pv[k], xv[k]);
 }
 
 }  // namespace repro

@@ -27,16 +27,17 @@
 // and a position buffer (the first reads the two sides directly); the last
 // 11 stages run in shared memory, one block a tile, which then gathers each
 // merged row's count and planes from its side into the merged state.  The
-// segmented combine of seg_combine.cuh (shared with segmented_combine.cu and
-// merge_path.cu) absorbs the duplicates and compacts the groups to the
-// front: the reference fuses that scan into the merge kernel, here it is
-// four more launches through device memory.  Left for later: several
-// global stages a pass (registers hold 2^r elements a thread), and the
-// combine fused into the last shared-memory phase.
+// segmented combine (the B-less fused pass of merge_absorb.cuh, as
+// segmented_combine.cu runs it) absorbs the duplicates and compacts the
+// groups to the front: the reference fuses that scan into the merge
+// kernel, here it is two more launches and a memset through device
+// memory.  Left for later: several global stages a pass (registers hold
+// 2^r elements a thread), and the combine fused into the last
+// shared-memory phase.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "seg_combine.cuh"
+#include "merge_absorb.cuh"
 
 namespace {
 
@@ -149,7 +150,7 @@ bitonic_tile(Sides s, const int64_t* keys, const int32_t* pos, int tile, int fro
 }  // namespace
 
 extern "C" long long repro_merge_absorb_bitonic_scratch_bytes(long long n, int ncols) {
-  return repro::sc_scratch_bytes(n, ncols);
+  return repro::merge_absorb_scratch_bytes(n, ncols);
 }
 
 // n: the padded side length, a power of two >= max(na, nb), n >= 2.
@@ -186,6 +187,7 @@ extern "C" int repro_merge_absorb_bitonic(
       vm, vx, merged_keys, merged_cnt, merged_sum, merged_min, merged_max);
   err = (int)cudaGetLastError();
   if (err) return err;
-  return repro::seg_combine_launch(merged_keys, n2, (int64_t)empty, cols, keys_out, scratch,
-                                   st);
+  return repro::merge_absorb_launch<false>(merged_keys, n2, nullptr, 0, (int64_t)empty, cols,
+                                           cols, keys_out, cnt_out, sum_out, vs, min_out, vm,
+                                           max_out, vx, scratch, st);
 }

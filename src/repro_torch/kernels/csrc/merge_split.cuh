@@ -1,5 +1,5 @@
-// Merge-path diagonal split, shared by the argsort merge passes
-// (argsort.cu) and the merge-absorb kernel (merge_path.cu), and a warp's
+// Merge-path diagonal split, shared by the argsort's merges (argsort.cu)
+// and the merge-absorb pass (merge_absorb.cuh), and a warp's
 // version of it for one diagonal of two sorted vectors in device memory.
 //
 // Output k of merge(A, B) lies on the k-th anti-diagonal of the |A| x |B|
@@ -14,15 +14,14 @@
 
 namespace repro {
 
-// le(x, y) answers "A[x] <= B[y]".
-template <class LessEq>
-__device__ __forceinline__ long long merge_path_split(long long diag, long long na,
-                                                      long long nb, LessEq le) {
-  long long lo = diag > nb ? diag - nb : 0;
-  long long hi = diag < na ? diag : na;
+// le(x, y) answers "A[x] <= B[y]"; Idx is int for offsets in shared memory.
+template <class Idx, class LessEq>
+__device__ __forceinline__ Idx merge_path_split(Idx diag, Idx na, Idx nb, LessEq le) {
+  Idx lo = diag > nb ? diag - nb : 0;
+  Idx hi = diag < na ? diag : na;
   while (lo < hi) {
     // mid > lo >= max(0, diag - nb), so mid - 1 >= 0 and diag - mid < nb
-    long long mid = (lo + hi + 1) >> 1;
+    Idx mid = (lo + hi + 1) >> 1;
     if (le(mid - 1, diag - mid)) {
       lo = mid;
     } else {
@@ -30,13 +29,6 @@ __device__ __forceinline__ long long merge_path_split(long long diag, long long 
     }
   }
   return lo;
-}
-
-// The side output `diag` comes from, given its split i (A wins ties).
-template <class LessEq>
-__device__ __forceinline__ bool merge_take_a(long long i, long long j, long long na,
-                                             long long nb, LessEq le) {
-  return i < na && (j >= nb || le(i, j));
 }
 
 // The split of `diag` by one warp (call with all 32 lanes; every lane

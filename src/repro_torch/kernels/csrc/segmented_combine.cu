@@ -7,20 +7,19 @@
 // What bounds it on the H100: memory.  It does O(1) operations per row and
 // column but must read every key, count and plane value and write the
 // compacted state: (8 + 4 + 4V) bytes a row each way.  At the main path's
-// batch of 65,536 rows that is under 2 MB, so there the launches (four, see
-// seg_combine.cuh) and the single-block carry scan bound it rather than
-// bandwidth.
+// batch of 65,536 rows that is under 2 MB, so there latency and launches
+// bound it rather than bandwidth.
 //
-// Design: the TPU kernel keeps one pow2 tile in VMEM and scans it in log2(N)
-// rolls; a CUDA block holds 512 rows, so the scan becomes three passes with
-// block carries (seg_combine.cuh) and the compaction is fused into the last
-// pass — each tail writes its aggregate straight to its slot, so no tail
-// mask and no scatter pass go through device memory.  A group may span any
-// number of blocks.
-#include "seg_combine.cuh"
+// Design: a segmented combine of A is the merge-absorb of A with an empty
+// B at capacity |A|, so it runs the B-less variant of the fused pass of
+// merge_absorb.cuh: tiles of 2,048 rows loaded coalesced, a block scan and
+// a single-pass decoupled look-back across tiles (a group may span any
+// number of tiles), the groups staged in shared memory and written
+// coalesced; then the fill.  Two launches and one memset a call.
+#include "merge_absorb.cuh"
 
 extern "C" long long repro_segmented_combine_scratch_bytes(long long n, int ncols) {
-  return repro::sc_scratch_bytes(n, ncols);
+  return repro::merge_absorb_scratch_bytes(n, ncols);
 }
 
 extern "C" int repro_segmented_combine(const int64_t* keys, long long n, long long empty,
@@ -32,6 +31,7 @@ extern "C" int repro_segmented_combine(const int64_t* keys, long long n, long lo
   repro::Cols cols;
   int err = repro::make_cols(cols, cnt, cnt_out, s, s_out, vs, mn, mn_out, vm, mx, mx_out, vx);
   if (err) return err;
-  return repro::seg_combine_launch(keys, n, (int64_t)empty, cols, keys_out, scratch,
-                                   (cudaStream_t)stream);
+  return repro::merge_absorb_launch<false>(keys, n, nullptr, 0, (int64_t)empty, cols, cols,
+                                           keys_out, cnt_out, s_out, vs, mn_out, vm, mx_out, vx,
+                                           scratch, (cudaStream_t)stream);
 }

@@ -41,7 +41,8 @@ def argsort_keys(keys: torch.Tensor) -> torch.Tensor:
     if keys.device.type == "cpu":
         return bitonic_sort.argsort_plain(keys)
     perm = bitonic_sort.argsort_cuda(keys)
-    LAUNCHES["argsort"] += 1
+    if keys.shape[0]:
+        LAUNCHES["argsort"] += 1
     return perm
 
 
@@ -51,7 +52,8 @@ def segmented_combine(state: AggState) -> AggState:
     if state.device.type == "cpu":
         return segmented_reduce.segmented_combine_plain(state)
     out = segmented_reduce.segmented_combine_cuda(state)
-    LAUNCHES["segmented_combine"] += 1
+    if state.capacity:
+        LAUNCHES["segmented_combine"] += 1
     return out
 
 

@@ -2,9 +2,9 @@
 CUDA kernel of ``csrc/segmented_combine.cu`` and its plain version.
 
 Counterpart of :mod:`repro.kernels.segmented_reduce` plus the compaction
-of ``ops._compact``: three passes of a flag-based segmented scan with
-block carries; each group's tail writes its aggregate to its compacted
-slot.
+of ``ops._compact``: the merge-absorb's fused pass with no B side (tiles
+of 2,048 rows, a block scan and a decoupled look-back across tiles, the
+groups written compacted), then a fill of the rows past the last group.
 """
 from __future__ import annotations
 
@@ -21,8 +21,8 @@ _ARGS = [_build.P, _build.LL, _build.LL, _build.P, _build.P, _build.I, _build.P,
 
 
 def scratch_for(name: str, symbol: str, n: int, state: AggState) -> torch.Tensor:
-    """Device scratch of a combine over ``n`` rows (its block carries, or
-    the merge-absorb's tile status words), sized by ``symbol``."""
+    """Device scratch of a fused merge-absorb pass over ``n`` rows (its
+    tiles' status words and counter), sized by ``symbol``."""
     f = _build.fn(name, symbol, [_build.LL, _build.I], _build.LL)
     nbytes = f(n, 1 + sum(state.widths))
     return torch.empty((nbytes,), dtype=torch.uint8, device=state.device)

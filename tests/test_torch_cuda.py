@@ -74,18 +74,29 @@ def _assert_same(a, b):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
+# Every size class and its edges (bitonic_sort.plan): the warp's 32, the
+# block's 1,024, a cluster's CTAs of 1,024 to 4,096 pairs up to 65,536 keys,
+# the large class above; keys with 30% interior EMPTY rows, all keys equal
+# (stable across CTAs and clusters) and all EMPTY.
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
-@pytest.mark.parametrize("n", [1, 2047, 2049, 70000])
-def test_argsort_kernel_matches_plain(dev, n, key_dtype):
-    keys = _state(dev, n, key_dtype, max(1, n // 4), widths=(0, 0, 0), empty_frac=0.3,
-                  sort=False).keys
-    assert torch.equal(bitonic_sort.argsort_cuda(keys), bitonic_sort.argsort_plain(keys))
+@pytest.mark.parametrize("keys", ["30% empty", "all equal", "all empty"])
+@pytest.mark.parametrize("n", [1, 32, 33, 1024, 1025, 2049, 8191, 8192, 8193, 65535, 65536,
+                               65537, 70000, 1 << 20])
+def test_argsort_kernel_matches_plain(dev, n, keys, key_dtype):
+    domain, empty_frac = {"30% empty": (max(1, n // 4), 0.3), "all equal": (1, 0.0),
+                          "all empty": (1, 1.0)}[keys]
+    k = _state(dev, n, key_dtype, domain, widths=(0, 0, 0), empty_frac=empty_frac,
+               sort=False).keys
+    assert torch.equal(bitonic_sort.argsort_cuda(k), bitonic_sort.argsort_plain(k))
 
 
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
 @pytest.mark.parametrize("n,domain,widths", [
     (1, 1, (1, 1, 1)), (513, 60, (2, 0, 2)), (100_000, 1, (1, 0, 0)),  # one group spans all
     (100_000, 20_000, (0, 0, 0)),
+    # a tile of the fused pass - 1, a tile and a tile + 1; one group over both tiles
+    (2047, 300, (1, 0, 0)), (2048, 300, (1, 1, 1)), (2049, 300, (4, 4, 4)), (2049, 1, (1, 1, 1)),
+    (65_536, 16_384, (1, 0, 0)),  # the aggregate's batch
 ])
 def test_segmented_combine_kernel_matches_plain(dev, n, domain, widths, key_dtype):
     st = _state(dev, n, key_dtype, domain, widths=widths)

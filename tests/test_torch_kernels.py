@@ -18,7 +18,7 @@ import torch
 from repro.core import sorted_ops as jso
 from repro.core.types import key_dtype_context, rows_to_state as j_rows_to_state
 from repro_torch.core.types import FIELDS, AggState, state_from_numpy, state_to_numpy
-from repro_torch.kernels import grouped_matmul, ops
+from repro_torch.kernels import bitonic_sort, grouped_matmul, ops
 
 RNG = np.random.default_rng(11)
 
@@ -101,6 +101,17 @@ def test_argsort_plain_matches_pallas_with_interior_empty(key_dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("n,key_dtype", [(33, np.uint32), (2049, np.uint64)])
+def test_argsort_plain_matches_pallas_at_class_edges(n, key_dtype):
+    """One past the CUDA kernel's warp class (32) and past its CTAs of
+    2,048 pairs: the reference pads to 64 and 4,096 rows (one key width
+    each: every Pallas size compiles anew in interpret mode)."""
+    k = _keys(n, key_dtype, max(2, n // 3), empty_frac=0.3)
+    arrs = _ref_state(k, None)
+    want = _jax_call(lambda s: jso.dispatch.get_backend("pallas").argsort(s.keys), arrs)
+    np.testing.assert_array_equal(ops.argsort_keys(_port(arrs).keys).numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
 def test_argsort_plain_matches_xla(key_dtype):
     k = _keys(3000, key_dtype, 500, empty_frac=0.1)
@@ -119,6 +130,16 @@ def test_argsort_plain_matches_xla(key_dtype):
 ])
 def test_segmented_combine_plain_matches_pallas(key_dtype, n, width, widths):
     arrs = _sorted_state(n, key_dtype, max(2, n // 8), width, widths=widths)
+    want = _np(_jax_call(jso.segmented_combine, arrs, backend="pallas"))
+    _assert_states(ops.segmented_combine(_port(arrs)), want)
+
+
+@pytest.mark.parametrize("n,domain,key_dtype", [(33, 5, np.uint32), (2049, 256, np.uint64),
+                                                (2049, 1, np.uint32)])
+def test_segmented_combine_plain_matches_pallas_at_tile_edges(n, domain, key_dtype):
+    """One row past the kernel's warp (32) and tile (2,048 rows) sizes, and
+    one group spanning both tiles of 2,049 rows."""
+    arrs = _sorted_state(n, key_dtype, domain, 2)
     want = _np(_jax_call(jso.segmented_combine, arrs, backend="pallas"))
     _assert_states(ops.segmented_combine(_port(arrs)), want)
 
@@ -209,3 +230,29 @@ def test_wrappers_take_the_kernel_path_off_the_cpu(call):
 ])
 def test_grouped_matmul_variant_rule(dtype, d, f, c, aligned, want):
     assert grouped_matmul.variant(dtype, d, f, c, aligned=aligned) == want
+
+
+# ---------------------------------------------------------------------------
+# which size class an argsort takes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,want", [
+    (0, ("warp", 32, 1)), (1, ("warp", 32, 1)), (32, ("warp", 32, 1)),   # decode's 32 keys
+    (33, ("block", 64, 1)), (65, ("block", 128, 1)), (1024, ("block", 1024, 1)),
+    (1025, ("cluster", 1024, 2)), (2048, ("cluster", 1024, 2)),
+    (2049, ("cluster", 1024, 4)), (8191, ("cluster", 1024, 8)),
+    (8192, ("cluster", 1024, 8)),                                       # prefill's 8,192
+    (8193, ("cluster", 1024, 16)), (16385, ("cluster", 2048, 16)),
+    (32769, ("cluster", 4096, 16)), (65535, ("cluster", 4096, 16)),
+    (65536, ("cluster", 4096, 16)),                                     # the aggregate's batch
+    (65537, ("large", 2048, 16)), (1 << 20, ("large", 2048, 16)),
+])
+def test_argsort_plan_rule(n, want):
+    """The plan depends on n alone; up to 65,536 keys it is one launch (the
+    warp, block and cluster classes), and a cluster covers n."""
+    got = bitonic_sort.plan(n)
+    assert got == want
+    variant, tile, cluster = got
+    if variant != "large":
+        assert n <= tile * cluster
