@@ -40,7 +40,9 @@ with a non-zero exit):
 8. the bitonic foil: every merge-absorb input phase 3 gave the merge-path
    kernel, replayed through ``ops.merge_absorb_sorted_bitonic``, must equal
    the merge-path kernel's result exactly; both timed on the shape that
-   carried most rows;
+   carried most rows, beside the foil's network size ``m`` and the
+   operations one call puts on the card (its plan's global passes, the
+   tiles and the fill, one memset);
 9. the serve path: ``qwen3-moe-30b-a3b`` at its published widths, random
    weights from the seed, prefill of 4 x 256 tokens and greedy decode to 16
    tokens through the sorted MoE dispatch (the argsort and grouped-matmul
@@ -68,9 +70,10 @@ the aggregate kernels on phase 3's, the probe on phase 6's, the bitonic
 foil on phase 8's, the grouped matmul on phase 9's, the argsort and the
 grouped matmul at every shape a path gave them, with the other paths'
 times beside, and the operations one call puts on the card
-(``torch.profiler``; the argsort must be one kernel up to 65,536 keys and
-the combine two kernels and a memset).  The last lines are the kernels' JSON record,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+(``torch.profiler``; the argsort must be one kernel up to 65,536 keys,
+the combine two kernels and a memset, and the foil its plan's).  The
+last lines are the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -372,13 +375,22 @@ def check_bitonic(dev, rng) -> None:
     """The bitonic merge-absorb equals its plain version and the merge-path
     kernel's plain version exactly: test_kernels.py's tiles (n = 64, 256,
     1024 a side, keys from n/2), EMPTY tails, unequal sides, one key for
-    all rows, 1- and 4-wide planes."""
+    all rows, 1- and 4-wide planes, and the edges of its plan
+    (``merge_aggregate.plan``, a tile of 8,192 words): m one tile, a tile x
+    2 and x 8 each -1 and +1 row, |a| + |b| above the larger side's next
+    power of two n (m = 2n), B empty, and m = 2^22 (two global passes of
+    five and four stages)."""
     from repro_torch.kernels import merge_aggregate, merge_path
 
     cases = [(n, n, n // 2, 0.0, (2, 2, 2)) for n in (64, 256, 1024)]
     cases += [(3000, 500, 5000, 0.2, (1, 0, 0)), (5, 70_000, 50_000, 0.1, (4, 0, 0)),
               (1 << 16, 4096, 1, 0.0, (1, 1, 1)), (0, 9, 20, 0.0, (1, 0, 0)),
               (1_064_960, 16_384, 1 << 24, 0.3, (1, 0, 0))]
+    cases += [(6000, 2192, 3000, 0.1, (1, 0, 0)), (10_000, 6383, 5000, 0.1, (1, 1, 1)),
+              (10_000, 6385, 5000, 0.1, (1, 0, 0)), (60_000, 5535, 40_000, 0.1, (1, 0, 0)),
+              (60_000, 5537, 1, 0.0, (2, 0, 0)), (5000, 4000, 2000, 0.2, (1, 1, 1)),
+              (70_000, 0, 30_000, 0.1, (1, 0, 0)),
+              (1_179_648, 1_179_648, 1 << 22, 0.3, (1, 0, 0))]
     for na, nb, domain, fill, widths in cases:
         a = make_state(rng, na, np.uint32, domain, fill, widths, dedup=True, device=dev)
         b = make_state(rng, nb, np.uint32, domain, fill, widths, device=dev)
@@ -714,8 +726,19 @@ def time_call(name: str, path: str, key) -> dict:
 
 # the operations one call may put on the card: (kernels, memsets, copies);
 # the argsort up to 65,536 keys one kernel, the combine two kernels and a
-# memset
+# memset (the bitonic foil's: on_card_design)
 ON_CARD = {"argsort": (1, 0, 0), "segmented_combine": (2, 1, 0)}
+
+
+def on_card_design(name: str, key):
+    """(distinct kernels, memsets, copies) of one call by design: ON_CARD's,
+    or the bitonic foil's, one kernel for each size of global pass its plan
+    runs, the tiles and the fill, and one memset."""
+    if name == "merge_absorb_bitonic":
+        from repro_torch.kernels import merge_aggregate
+
+        return len(set(merge_aggregate.plan(key[0], key[1])[2])) + 2, 1, 0
+    return ON_CARD.get(name)
 
 
 def on_card(name: str, key, fn, reps: int = 20) -> dict:
@@ -732,7 +755,9 @@ def on_card(name: str, key, fn, reps: int = 20) -> dict:
     kinds = {"memsets": sum(op.startswith("Memset") for op, _, _ in ops),
              "copies": sum(op.startswith("Memcpy") for op, _, _ in ops)}
     kinds["kernels"] = len(ops) - kinds["memsets"] - kinds["copies"]
-    want = ON_CARD.get(name)
+    kinds["kernel_launches"] = sum(c for op, _, c in ops
+                                   if not op.startswith(("Memset", "Memcpy")))
+    want = on_card_design(name, key)
     if want and 0 < key[0] and (name != "argsort" or key[0] <= 1 << 16):
         got = (kinds["kernels"], kinds["memsets"], kinds["copies"])
         if got != want:
@@ -793,8 +818,8 @@ def profile_aggregate(dev, rows, wall_s: float) -> dict:
     prof = device_profile("one SF-10 aggregate", lambda: repro_torch.aggregate(
         {"orderkey": rows["orderkey"]}, by=repro_torch.KeySpec.of(orderkey=26),
         values=rows["quantity"], aggs=("count", "sum"), cfg=cfg, device=dev),
-        {"merge_absorb": ("merge_absorb_tiles<true>", "merge_absorb_fill<true>"),
-         "segmented_combine": ("merge_absorb_tiles<false>", "merge_absorb_fill<false>"),
+        {"merge_absorb": ("merge_absorb_tiles<1,", "merge_absorb_fill<true>"),  # MA_SRC_MERGE
+         "segmented_combine": ("merge_absorb_tiles<0,", "merge_absorb_fill<false>"),  # MA_SRC_A
          "argsort": ARGSORT_KERNELS})
     prof["phase3_wall_ms"] = wall_s * 1e3
     log(f"aggregate profile: {json.dumps(prof)}")
@@ -1048,7 +1073,7 @@ def foil_path() -> dict:
     kernel's exactly (integer payloads).  Both kernels timed on the inputs
     of the shape that carried most rows on phase 3."""
     from repro_torch.kernels import merge_path, ops
-    from repro_torch.kernels.merge_aggregate import next_pow2
+    from repro_torch.kernels.merge_aggregate import next_pow2, plan
 
     sigs = CAPTURED["aggregate"]["merge_absorb"]
     ops.reset_launch_counts()
@@ -1071,7 +1096,9 @@ def foil_path() -> dict:
     busiest = max((k for k in sigs if list(k[:3]) == t["shape"]), key=lambda k: sigs[k][0])
     _, (args, kw) = sigs[busiest]
     t["merge_path_ms"] = cuda_ms(lambda: merge_path.merge_absorb_cuda(*args, **kw), 20)[0]
+    # the rows the reference pads both sides to, and the kernel's network
     t["padded_rows"] = 2 * next_pow2(max(busiest[0], busiest[1]))
+    t["m"], _, t["passes"] = plan(busiest[0], busiest[1])
     for sig in sigs.values():
         sig[1] = None
     info = dict(replayed_shapes=[list(k) for k in sigs], launches=launches, timed=t)
@@ -1334,8 +1361,8 @@ def kernel_records(by_path: dict) -> list[dict]:
             launches=by_path[path][name], max_abs_err=MAX_ERR[name], max_abs_diff=MAX_ERR[name],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], path=path,
-            **{k: t[k] for k in ("host_ms", "by_shape", "merge_path_ms", "padded_rows",
-                                 "variant", "on_card_per_call") if k in t},
+            **{k: t[k] for k in ("host_ms", "by_shape", "merge_path_ms", "padded_rows", "m",
+                                 "passes", "variant", "on_card_per_call") if k in t},
             **({"launches_simt": by_path[path]["grouped_matmul_simt"]}
                if name == "grouped_matmul" else {}),
             device_time_on_path=PROFILES.get(path, {}).get("kernels", {}).get(name),

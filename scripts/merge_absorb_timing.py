@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time one kernel of the SF-10 aggregate path (``--kernel``: the
-merge-path merge-absorb, the argsort or the segmented combine) of one
+merge-path merge-absorb, the argsort or the segmented combine), or the
+bitonic foil on that path's merge-absorb inputs (``bitonic``), of one
 source tree on one CUDA card by each yardstick ``chip_smoke.py`` has used,
 so that two trees (this checkout and an earlier commit unpacked beside
 it) compare on the same footing.  Run from the repository root:
@@ -29,6 +30,13 @@ NumPy oracle, and measures:
   (the host's time a call), and the kernels and memsets one call puts on
   the card (``torch.profiler``); for the argsort ``torch.argsort``'s
   device ms beside.
+
+For ``bitonic`` the path's calls are the merge-absorb's (the foil is on
+no user's path): each shape the path gave the merge-absorb is replayed
+through the foil, ``path_device_ms`` is the sum over shapes of calls x
+the shape's least ``device_ms``, and each shape also times the segmented
+combine of the merged rows alone (``combine_of_merged_device_ms``: what a
+foil that merged first and combined after would pay on top of its merge).
 
 Prints one JSON line; exits 2 without a card.
 """
@@ -65,7 +73,7 @@ def kernels(src_mods):
     call, copy of a call's inputs)."""
     import torch
 
-    bitonic_sort, merge_path, segmented_reduce = src_mods
+    bitonic_sort, merge_path, segmented_reduce, merge_aggregate = src_mods
 
     def copy(st):
         return st.map(torch.clone)
@@ -80,12 +88,17 @@ def kernels(src_mods):
         "segmented_combine": (segmented_reduce, "segmented_combine_cuda",
                               "segmented_combine_plain", lambda st: (st.capacity, st.widths),
                               lambda st: ((copy(st),), {})),
+        # the signature and copy are of the merge-absorb's calls, which it replays
+        "bitonic": (merge_aggregate, "merge_absorb_bitonic_cuda", "merge_absorb_bitonic_plain",
+                    lambda a, b, **kw: (a.capacity, b.capacity, a.widths),
+                    lambda a, b, **kw: ((copy(a), copy(b)), {})),
     }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("merge_absorb", "argsort", "segmented_combine"),
+    ap.add_argument("--kernel",
+                    choices=("merge_absorb", "argsort", "segmented_combine", "bitonic"),
                     default="merge_absorb")
     ap.add_argument("--src", type=Path, default=ROOT / "src")
     ap.add_argument("--reps", type=int, default=20)
@@ -101,13 +114,25 @@ def main() -> int:
         print("merge_absorb_timing: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch
-    from repro_torch.kernels import _build, bitonic_sort, merge_path, ops, segmented_reduce
+    from repro_torch.core.ordered_index import argsort_torch
+    from repro_torch.core.types import concat_states, take
+    from repro_torch.kernels import (
+        _build,
+        bitonic_sort,
+        merge_aggregate,
+        merge_path,
+        ops,
+        segmented_reduce,
+    )
 
     if not Path(repro_torch.__file__).resolve().is_relative_to(src):
         raise SystemExit(f"repro_torch came from {repro_torch.__file__}, not {src}")
     dev = torch.device("cuda", 0)
-    mod, launch, plain, sig, snap = kernels((bitonic_sort, merge_path, segmented_reduce))[
-        args.kernel]
+    mod, launch, plain, sig, snap = kernels(
+        (bitonic_sort, merge_path, segmented_reduce, merge_aggregate))[args.kernel]
+    foil = args.kernel == "bitonic"
+    # the path's function whose calls are timed (the foil: captured only)
+    path_mod, path_launch = (merge_path, "merge_absorb_cuda") if foil else (mod, launch)
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -133,7 +158,18 @@ def main() -> int:
     cs.check_equal("Q18 sums", rel["sum"][:, 0].astype(np.float64), sums)
 
     inner, per_call, shapes = getattr(mod, launch), [], {}
+    path_inner = getattr(path_mod, path_launch)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def note(*a, **kw):
+        key = sig(*a, **kw)
+        if key not in shapes:
+            shapes[key] = [0, snap(*a, **kw)]
+        shapes[key][0] += 1
+
+    def captured(*a, **kw):
+        note(*a, **kw)
+        return path_inner(*a, **kw)
 
     def timed(*a, **kw):
         torch.cuda.synchronize()
@@ -143,19 +179,19 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         per_call.append(start.elapsed_time(end))
-        key = sig(*a, **kw)
-        if key not in shapes:
-            shapes[key] = [0, snap(*a, **kw)]
-        shapes[key][0] += 1
+        note(*a, **kw)
         return out
 
     ops.reset_launch_counts()
-    setattr(mod, launch, timed)
+    setattr(path_mod, path_launch, captured if foil else timed)
     try:
         aggregate()
     finally:
-        setattr(mod, launch, inner)
-    if len(per_call) != ops.LAUNCHES[args.kernel]:
+        setattr(path_mod, path_launch, path_inner)
+    if foil:
+        if sum(c for c, _ in shapes.values()) != ops.LAUNCHES["merge_absorb"]:
+            raise SystemExit("captured fewer merge-absorb calls than the path launched")
+    elif len(per_call) != ops.LAUNCHES[args.kernel]:
         raise SystemExit(f"timed {len(per_call)} calls of {ops.LAUNCHES[args.kernel]}")
     rng = np.random.default_rng(cs.SEED)
     if args.kernel == "argsort":  # the serve path's decode and prefill: expert ids
@@ -194,10 +230,22 @@ def main() -> int:
         if args.kernel == "argsort":
             entry["torch_argsort_device_ms"] = cs.cuda_ms(
                 lambda: torch.argsort(a[0], stable=True), args.reps)[0]
+        if foil:
+            merged = concat_states(*a)
+            merged = take(merged, argsort_torch(merged.keys))
+            if hasattr(merge_aggregate, "plan"):  # trees before the packed-word network: none
+                entry["m"], _, entry["passes"] = merge_aggregate.plan(key[0], key[1])
+            entry["combine_of_merged_device_ms"] = cs.cuda_ms(
+                lambda: segmented_reduce.segmented_combine_cuda(merged), args.reps)[0]
         by_shape.append(entry)
+    if foil:
+        calls = sum(e["calls"] for e in by_shape)
+        path_ms = sum(e["calls"] * min(t["device_ms"] for t in e["timings"]) for e in by_shape)
+    else:
+        calls, path_ms = len(per_call), sum(per_call)
     print(json.dumps(dict(
         kernel=args.kernel, src=str(src), card=cs.card_line(), build_s=build_s, wall_s=wall_s,
-        calls=len(per_call), path_device_ms=sum(per_call), by_shape=by_shape)))
+        calls=calls, path_device_ms=path_ms, by_shape=by_shape)))
     return 0
 
 

@@ -2,11 +2,13 @@
 // wins ties, duplicates allowed on either side), combine adjacent equal
 // keys (EMPTY never joins a group), and compact the groups to the front at
 // capacity |A| + |B|, EMPTY and the neutral values after them.  With B
-// empty it is the segmented combine of A, so one pass serves merge_path.cu
-// (the merge-absorb), segmented_combine.cu (the combine) and
-// merge_aggregate.cu (the bitonic foil's combine); the combine compiles
-// the B-less variant, which loads its tile of A with no split search and
-// no merge.
+// empty it is the segmented combine of A.  One kernel template serves
+// three sources of a tile's rows: a merge of its slices of A and B in
+// shared memory (MA_SRC_MERGE: merge_path.cu, the merge-absorb), A's rows
+// as they are (MA_SRC_A: segmented_combine.cu, the combine; no split
+// search and no merge), and a sorting network its caller supplies
+// (MA_SRC_NETWORK: merge_aggregate.cu, the bitonic foil, whose tiles are
+// 1,024 threads x 8 rows in dynamic shared memory).
 //
 // Design: one kernel over tiles of 2,048 output rows (256 threads x 8),
 // then a small kernel that fills the rows past the last group.
@@ -49,48 +51,84 @@ constexpr int MA_ITEMS = 8;
 constexpr int MA_TILE = MA_THREADS * MA_ITEMS;
 constexpr int FILL_THREADS = 256;
 
+// Where a tile's rows come from (merge_absorb_tiles).
+enum : int { MA_SRC_A = 0, MA_SRC_MERGE = 1, MA_SRC_NETWORK = 2 };
+
+// The network of a source that has none.
+struct NoNetwork {};
+
+// A network source's tile arrays (its kernel's dynamic shared memory).
+extern __shared__ __align__(16) unsigned char ma_network_smem[];
+
 // Column `col` of A's rows [i0, i0 + la) and B's rows [j0, j0 + lb) into
 // buf[0, la) and buf[la, la + lb): coalesced loads of the tile's slices.
+template <int NT>
 __device__ __forceinline__ void load_slices(const Cols& ca, const Cols& cb, int col,
                                             long long i0, int la, long long j0, int lb,
                                             uint32_t* buf) {
   const uint32_t* pa = ca.in[col];
   const uint32_t* pb = cb.in[col];
   const int stride = ca.stride[col], offset = ca.offset[col];
-  for (int r = threadIdx.x; r < la; r += MA_THREADS) buf[r] = pa[(i0 + r) * stride + offset];
-  for (int r = threadIdx.x; r < lb; r += MA_THREADS) buf[la + r] = pb[(j0 + r) * stride + offset];
+  for (int r = threadIdx.x; r < la; r += NT) buf[r] = pa[(i0 + r) * stride + offset];
+  for (int r = threadIdx.x; r < lb; r += NT) buf[la + r] = pb[(j0 + r) * stride + offset];
 }
 
-// 4 blocks an SM (64 registers a thread): all 528 tiles of a wide-merge
-// page resident at once.  Without B (HAS_B false) a tile's rows are A's
-// rows [d0, d1): no split search and no merge.
-template <bool HAS_B>
-__global__ void __launch_bounds__(MA_THREADS, 4)
+// Tiles of NT x MA_ITEMS output rows, a block of NT threads each.  A merge
+// or A alone: 4 blocks an SM (64 registers a thread), all 528 tiles of a
+// wide-merge page resident at once; without B (MA_SRC_A) a tile's rows
+// are A's rows [d0, d1): no split search and no merge.
+//
+// With MA_SRC_NETWORK the tile's rows are merged rows [d0, d1) of A and B
+// as `net` orders them: net.bind(ma_network_smem) lays its tile arrays
+// out in the dynamic shared memory (net.keys, net.cols, in place of the
+// static arrays, which shrink to one entry), net.load(tile) starts the
+// tile's sort (its shared-memory writes are published by the barrier
+// after the split search), and net.rows(...) finishes it and gives each
+// thread its MA_ITEMS consecutive rows as keys and positions in the tile's
+// slices (barriers inside; every thread calls each).  The splits of the
+// tile's diagonals still give its edge keys and its slices of A and B: a
+// merge keeps each side's order, so the slices hold exactly the tile's
+// rows of each side.
+template <int SRC, int NT = MA_THREADS, class Network = NoNetwork>
+__global__ void __launch_bounds__(NT, SRC == MA_SRC_NETWORK ? 1 : 4)
 merge_absorb_tiles(const int64_t* __restrict__ ka, long long na, const int64_t* __restrict__ kb,
                    long long nb, int64_t empty, Cols ca, Cols cb,
                    int64_t* __restrict__ keys_out, unsigned long long* status, int ntiles,
-                   int* counter) {
+                   int* counter, Network net) {
+  constexpr int TILE = NT * MA_ITEMS;
+  constexpr bool HAS_B = SRC != MA_SRC_A;  // the rows merge slices of A and B
+  constexpr int STATIC = SRC == MA_SRC_NETWORK ? 1 : TILE;
   // the tile's keys, A's slice then B's; then its groups' keys, compacted
-  __shared__ int64_t s_keys[MA_TILE];
+  __shared__ int64_t s_keys_static[STATIC];
   // the first two columns (the count and a one-wide plane: the main path's
   // state) are loaded with the keys, column 0 to s_in and column 1 to
   // s_aux, and their aggregates wait, compacted, in s_out and s_in for the
   // tile's first slot; any further column passes through s_in and s_out
-  __shared__ uint32_t s_in[MA_TILE], s_aux[MA_TILE], s_out[MA_TILE];
-  __shared__ int64_t s_first[MA_THREADS], s_last[MA_THREADS];
+  __shared__ uint32_t s_in_static[STATIC], s_aux_static[STATIC], s_out_static[STATIC];
+  __shared__ int64_t s_first[NT], s_last[NT];
   __shared__ long long s_split[2];
   __shared__ int64_t s_edge[2];  // keys of the merged rows before and after the tile
   __shared__ int s_has_edge[2];
   __shared__ int s_tile, s_lead_start;
   __shared__ uint32_t s_carry[2], s_tile_slot;
+  int64_t* s_keys = s_keys_static;
+  uint32_t *s_in = s_in_static, *s_aux = s_aux_static, *s_out = s_out_static;
+  if constexpr (SRC == MA_SRC_NETWORK) {
+    net.bind(ma_network_smem);
+    s_keys = reinterpret_cast<int64_t*>(net.keys);
+    s_in = net.cols;
+    s_aux = net.cols + TILE;
+    s_out = net.cols + 2 * TILE;
+  }
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) s_tile = atomicAdd(counter, 1);
   __syncthreads();
   const int tile = s_tile;
+  if constexpr (SRC == MA_SRC_NETWORK) net.load(tile);
   const long long n = na + nb;
-  const long long d0 = (long long)tile * MA_TILE;
-  const long long d1 = d0 + MA_TILE < n ? d0 + MA_TILE : n;
+  const long long d0 = (long long)tile * TILE;
+  const long long d1 = d0 + TILE < n ? d0 + TILE : n;
   const int cnt = (int)(d1 - d0);
   const int ncols = ca.ncols;
 
@@ -124,13 +162,17 @@ merge_absorb_tiles(const int64_t* __restrict__ ka, long long na, const int64_t* 
   const int la = HAS_B ? (int)(s_split[1] - i0) : cnt, lb = cnt - la;
   // the keys and first two columns of the tile's rows: with B, each
   // thread's loads all in flight before its first store; without B, whose
-  // registers then spill, in order (each the faster on the card)
-  if constexpr (HAS_B) {
+  // registers then spill, in order (each the faster on the card); the
+  // network's keys are its words, already loading
+  if constexpr (SRC == MA_SRC_NETWORK) {
+    if (ncols > 0) load_slices<NT>(ca, cb, 0, i0, la, j0, lb, s_in);
+    if (ncols > 1) load_slices<NT>(ca, cb, 1, i0, la, j0, lb, s_aux);
+  } else if constexpr (HAS_B) {
     int64_t k[MA_ITEMS];
     uint32_t v0[MA_ITEMS], v1[MA_ITEMS];
 #pragma unroll
     for (int u = 0; u < MA_ITEMS; ++u) {
-      const int r = tid + u * MA_THREADS;
+      const int r = tid + u * NT;
       const bool from_a = r < la;
       const long long row = from_a ? i0 + r : j0 + (r - la);
       if (r < cnt) {
@@ -141,7 +183,7 @@ merge_absorb_tiles(const int64_t* __restrict__ ka, long long na, const int64_t* 
     }
 #pragma unroll
     for (int u = 0; u < MA_ITEMS; ++u) {
-      const int r = tid + u * MA_THREADS;
+      const int r = tid + u * NT;
       if (r < cnt) {
         s_keys[r] = k[u];
         if (ncols > 0) s_in[r] = v0[u];
@@ -149,36 +191,40 @@ merge_absorb_tiles(const int64_t* __restrict__ ka, long long na, const int64_t* 
       }
     }
   } else {
-    for (int r = tid; r < cnt; r += MA_THREADS) s_keys[r] = ka[i0 + r];
-    if (ncols > 0) load_slices(ca, cb, 0, i0, la, j0, lb, s_in);
-    if (ncols > 1) load_slices(ca, cb, 1, i0, la, j0, lb, s_aux);
+    for (int r = tid; r < cnt; r += NT) s_keys[r] = ka[i0 + r];
+    if (ncols > 0) load_slices<NT>(ca, cb, 0, i0, la, j0, lb, s_in);
+    if (ncols > 1) load_slices<NT>(ca, cb, 1, i0, la, j0, lb, s_aux);
   }
   __syncthreads();
 
   // this thread's outputs: tile rows [p0, p0 + MA_ITEMS), each from its
   // source at src[u] in the tile's slices (A's first)
   const int p0 = tid * MA_ITEMS;
-  const int dp = p0 < cnt ? p0 : cnt;
-  const int64_t* sa = s_keys;
-  const int64_t* sb = s_keys + la;
-  int ia = dp;
-  if constexpr (HAS_B) {
-    ia = merge_path_split(dp, la, lb, [&](int x, int y) { return sa[x] <= sb[y]; });
-  }
-  int ib = dp - ia;
   int64_t key[MA_ITEMS];
   int src[MA_ITEMS];
+  if constexpr (SRC == MA_SRC_NETWORK) {
+    net.rows(p0, cnt, i0, la, j0, empty, key, src);
+  } else {
+    const int dp = p0 < cnt ? p0 : cnt;
+    const int64_t* sa = s_keys;
+    const int64_t* sb = s_keys + la;
+    int ia = dp;
+    if constexpr (HAS_B) {
+      ia = merge_path_split(dp, la, lb, [&](int x, int y) { return sa[x] <= sb[y]; });
+    }
+    int ib = dp - ia;
 #pragma unroll
-  for (int u = 0; u < MA_ITEMS; ++u) {
-    src[u] = 0;
-    key[u] = empty;
-    if (p0 + u < cnt) {
-      if (!HAS_B || (ia < la && (ib >= lb || sa[ia] <= sb[ib]))) {
-        key[u] = sa[ia];
-        src[u] = ia++;
-      } else {
-        key[u] = sb[ib];
-        src[u] = la + ib++;
+    for (int u = 0; u < MA_ITEMS; ++u) {
+      src[u] = 0;
+      key[u] = empty;
+      if (p0 + u < cnt) {
+        if (!HAS_B || (ia < la && (ib >= lb || sa[ia] <= sb[ib]))) {
+          key[u] = sa[ia];
+          src[u] = ia++;
+        } else {
+          key[u] = sb[ib];
+          src[u] = la + ib++;
+        }
       }
     }
   }
@@ -240,7 +286,7 @@ merge_absorb_tiles(const int64_t* __restrict__ ka, long long na, const int64_t* 
                    nf > 1 ? local(1, s_aux) : 0u};
   bool ef, tf;
   uint32_t ev[3], tv[3];
-  block_scan_exclusive<MA_THREADS, 3>(ops, 1u, start != 0, v, ef, ev, tf, tv);
+  block_scan_exclusive<NT, 3>(ops, 1u, start != 0, v, ef, ev, tf, tv);
   const uint32_t my_slot = ev[0], groups = tv[0];
   const bool need_carry = tile > 0 && !s_lead_start;  // the tile opens inside a segment
   auto words = [&](int c) { return status + (long long)(c + 1) * ntiles; };
@@ -296,7 +342,7 @@ merge_absorb_tiles(const int64_t* __restrict__ ka, long long na, const int64_t* 
   auto write_out = [&](int c, const uint32_t* stage) {
     uint32_t* out = ca.out[c];
     const int stride = ca.stride[c], offset = ca.offset[c];
-    for (uint32_t i = tid; i < groups; i += MA_THREADS)
+    for (uint32_t i = tid; i < groups; i += NT)
       out[(long long)(tile_slot + i) * stride + offset] = stage[i];
   };
   if (nf > 0) stage_column(0, s_in, ef, ev[1], s_carry[0], s_out);
@@ -305,16 +351,16 @@ merge_absorb_tiles(const int64_t* __restrict__ ka, long long na, const int64_t* 
     stage_column(1, s_aux, ef, ev[2], s_carry[1], s_in);
   }
   __syncthreads();
-  for (uint32_t i = tid; i < groups; i += MA_THREADS) keys_out[tile_slot + i] = s_keys[i];
+  for (uint32_t i = tid; i < groups; i += NT) keys_out[tile_slot + i] = s_keys[i];
   if (nf > 0) write_out(0, s_out);
   if (nf > 1) write_out(1, s_in);
   for (int c = 2; c < ncols; ++c) {  // wider planes: one column at a time
     __syncthreads();
-    load_slices(ca, cb, c, i0, la, j0, lb, s_in);
+    load_slices<NT>(ca, cb, c, i0, la, j0, lb, s_in);
     __syncthreads();
     const int op1[1] = {ca.op[c]};
     uint32_t v1[1] = {local(c, s_in)}, ev1[1], tv1[1];
-    block_scan_exclusive<MA_THREADS, 1>(op1, 0u, start != 0, v1, ef, ev1, tf, tv1);
+    block_scan_exclusive<NT, 1>(op1, 0u, start != 0, v1, ef, ev1, tf, tv1);
     if (tid == 0) lb_publish(words(c) + tile, tile == 0 || tf ? LB_INCLUSIVE : LB_LOCAL, tv1[0]);
     if (warp == 0 && need_carry) carry_in(c, tf, tv1[0], 0);
     __syncthreads();
@@ -350,6 +396,19 @@ __global__ void merge_absorb_fill(long long n, int64_t empty,
   fill_rows(max_out, groups, n, vx, __uint_as_float(0xff800000u));   // -inf
 }
 
+// The fill of rows [groups, n) after the tiles of n rows, the last of
+// which published its inclusive tail count in *last_tail_word.
+template <bool HAS_B>
+int merge_absorb_fill_launch(long long n, int64_t empty, const unsigned long long* last_tail_word,
+                             int64_t* keys_out, int32_t* cnt_out, float* sum_out, int vs,
+                             float* min_out, int vm, float* max_out, int vx, cudaStream_t s) {
+  long long fill_blocks = (n + FILL_THREADS - 1) / FILL_THREADS;
+  if (fill_blocks > 528) fill_blocks = 528;  // 4 an SM
+  merge_absorb_fill<HAS_B><<<(unsigned)fill_blocks, FILL_THREADS, 0, s>>>(
+      n, empty, last_tail_word, keys_out, cnt_out, sum_out, vs, min_out, vm, max_out, vx);
+  return (int)cudaGetLastError();
+}
+
 inline int ntiles_of(long long n) { return (int)((n + MA_TILE - 1) / MA_TILE); }
 
 // The scratch of a call over n rows and ncols columns: the counter (padded
@@ -376,15 +435,12 @@ int merge_absorb_launch(const int64_t* ka, long long na, const int64_t* kb, long
   if (err) return err;
   int* counter = (int*)scratch;
   unsigned long long* status = (unsigned long long*)((char*)scratch + 8);
-  merge_absorb_tiles<HAS_B><<<ntiles, MA_THREADS, 0, s>>>(ka, na, kb, nb, empty, ca, cb,
-                                                          keys_out, status, ntiles, counter);
+  merge_absorb_tiles<HAS_B ? MA_SRC_MERGE : MA_SRC_A><<<ntiles, MA_THREADS, 0, s>>>(
+      ka, na, kb, nb, empty, ca, cb, keys_out, status, ntiles, counter, NoNetwork{});
   err = (int)cudaGetLastError();
   if (err) return err;
-  long long fill_blocks = (n + FILL_THREADS - 1) / FILL_THREADS;
-  if (fill_blocks > 528) fill_blocks = 528;  // 4 an SM
-  merge_absorb_fill<HAS_B><<<(unsigned)fill_blocks, FILL_THREADS, 0, s>>>(
-      n, empty, status + ntiles - 1, keys_out, cnt_out, sum_out, vs, min_out, vm, max_out, vx);
-  return (int)cudaGetLastError();
+  return merge_absorb_fill_launch<HAS_B>(n, empty, status + ntiles - 1, keys_out, cnt_out,
+                                         sum_out, vs, min_out, vm, max_out, vx, s);
 }
 
 }  // namespace repro

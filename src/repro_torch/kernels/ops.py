@@ -80,9 +80,9 @@ def join_probe(a_keys: torch.Tensor, b_keys: torch.Tensor, empty: int):
 
 def merge_absorb_sorted_bitonic(a: AggState, b: AggState) -> AggState:
     """The previous-generation merge-absorb (a bitonic merge network), kept
-    as the merge-path kernel's foil: u32-domain keys only, both sides
-    padded to the next power of two of the larger capacity, output trimmed
-    to ``min(|a| + |b|, 2n)`` rows."""
+    as the merge-path kernel's foil: u32-domain keys only; the output has
+    ``|a| + |b|`` rows, the reference's ``min(|a| + |b|, 2n)`` with ``n``
+    the next power of two of the larger capacity."""
     if a.device.type == "cpu":
         return merge_aggregate.merge_absorb_bitonic_plain(a, b)
     out = merge_aggregate.merge_absorb_bitonic_cuda(a, b)

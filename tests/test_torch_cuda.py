@@ -286,10 +286,18 @@ def test_grouped_matmul_kernel_matches_plain(dev, e, c, d, f, bf16, dtype):
     assert not got[: c // 2].any()
 
 
+# The plan's edges (merge_aggregate.plan, a tile of 8,192 words): m one
+# tile; a tile x 2 and x 8, each -1 and +1 row (no pass, one pass of one
+# stage; one of three, one of four); |a| + |b| above n, the next power of two
+# of the larger side (m = 2n); B empty; two global passes.
 @pytest.mark.parametrize("na,nb,domain,widths", [
     (64, 64, 32, (2, 2, 2)), (1024, 1024, 512, (1, 0, 0)), (3000, 500, 5000, (4, 0, 0)),
     (5, 70_000, 50_000, (1, 1, 1)), (1 << 16, 4096, 1, (1, 0, 0)),  # all keys equal
     (0, 9, 20, (1, 0, 0)),
+    (6000, 2192, 3000, (1, 0, 0)), (10_000, 6383, 5000, (1, 1, 1)),
+    (10_000, 6385, 5000, (1, 0, 0)), (60_000, 5535, 40_000, (1, 0, 0)),
+    (60_000, 5537, 1, (2, 0, 0)), (5000, 4000, 2000, (1, 1, 1)), (70_000, 0, 30_000, (1, 0, 0)),
+    (300_000, 200_000, 100_000, (1, 0, 0)),
 ])
 def test_bitonic_kernel_matches_plain(dev, na, nb, domain, widths):
     a = _state(dev, na, np.uint32, domain, widths=widths, empty_frac=0.2, unique=True)

@@ -101,11 +101,11 @@ def test_argsort_plain_matches_pallas_with_interior_empty(key_dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("n,key_dtype", [(33, np.uint32), (2049, np.uint64)])
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("n", [33, 2049])
 def test_argsort_plain_matches_pallas_at_class_edges(n, key_dtype):
     """One past the CUDA kernel's warp class (32) and past its CTAs of
-    2,048 pairs: the reference pads to 64 and 4,096 rows (one key width
-    each: every Pallas size compiles anew in interpret mode)."""
+    2,048 pairs: the reference pads to 64 and 4,096 rows."""
     k = _keys(n, key_dtype, max(2, n // 3), empty_frac=0.3)
     arrs = _ref_state(k, None)
     want = _jax_call(lambda s: jso.dispatch.get_backend("pallas").argsort(s.keys), arrs)
@@ -134,8 +134,8 @@ def test_segmented_combine_plain_matches_pallas(key_dtype, n, width, widths):
     _assert_states(ops.segmented_combine(_port(arrs)), want)
 
 
-@pytest.mark.parametrize("n,domain,key_dtype", [(33, 5, np.uint32), (2049, 256, np.uint64),
-                                                (2049, 1, np.uint32)])
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("n,domain", [(33, 5), (2049, 256), (2049, 1)])
 def test_segmented_combine_plain_matches_pallas_at_tile_edges(n, domain, key_dtype):
     """One row past the kernel's warp (32) and tile (2,048 rows) sizes, and
     one group spanning both tiles of 2,049 rows."""

@@ -35,7 +35,15 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro.models import moe as JMOE
 from repro_torch.configs import get_config
-from repro_torch.core.types import FIELDS, AggState, state_from_numpy, state_to_numpy
+from repro_torch.core.ordered_index import argsort_torch, segmented_combine_torch
+from repro_torch.core.types import (
+    FIELDS,
+    AggState,
+    concat_states,
+    state_from_numpy,
+    state_to_numpy,
+    take,
+)
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import merge_aggregate as ma
 from repro_torch.kernels import ops
@@ -244,27 +252,45 @@ def _assert_states(got: AggState, want: dict):
         np.testing.assert_allclose(g[f], want[f], rtol=1e-4, atol=1e-5, err_msg=f)
 
 
-@pytest.mark.parametrize("n", [64, 256, 1024])
-def test_bitonic_plain_matches_merge_absorb_tiles(n):
+@pytest.fixture(scope="module")
+def tiles_reference():
     """test_kernels.py's tiles (sorted keys with duplicates, unit counts,
-    2-wide planes) through the Pallas kernel and the reference's own
-    compaction, against the port's plain version on the same states."""
-    def mk():
-        k = np.sort(RNG.integers(0, n // 2, size=(1, n)).astype(np.uint32), -1)
-        return k, np.ones((1, n), np.int32), RNG.normal(size=(1, 2, n)).astype(np.float32)
+    2-wide planes), ``n`` rows a side, through the Pallas kernel and the
+    reference's own compaction: ``get(n)`` gives the two states and the
+    reference's result, each ``n`` computed once for the module."""
+    cache = {}
 
-    (ka, ca, va), (kb, cb, vb) = mk(), mk()
-    args = [jnp.asarray(x) for x in (ka, ca, va, va, va, kb, cb, vb, vb, vb)]
-    k2, c2, s2, mn2, mx2, tails = merge_absorb_tiles(*args)
-    want = kops._compact(k2[0], c2, s2, mn2, mx2, tails, (2, 2, 2))
-    want = {f: np.asarray(getattr(want, f)) for f in FIELDS}
+    def get(n):
+        if n not in cache:
+            rng = np.random.default_rng(n)
 
-    def state(k, c, v):
-        plane = v[0].T.copy()
-        return state_from_numpy({"keys": k[0], "count": c[0], "sum": plane, "min": plane,
-                                 "max": plane}, device="cpu")
+            def mk():
+                k = np.sort(rng.integers(0, n // 2, size=(1, n)).astype(np.uint32), -1)
+                return k, np.ones((1, n), np.int32), rng.normal(size=(1, 2, n)).astype(np.float32)
 
-    _assert_states(ops.merge_absorb_sorted_bitonic(state(ka, ca, va), state(kb, cb, vb)), want)
+            (ka, ca, va), (kb, cb, vb) = mk(), mk()
+            args = [jnp.asarray(x) for x in (ka, ca, va, va, va, kb, cb, vb, vb, vb)]
+            k2, c2, s2, mn2, mx2, tails = merge_absorb_tiles(*args)
+            want = kops._compact(k2[0], c2, s2, mn2, mx2, tails, (2, 2, 2))
+
+            def state(k, c, v):
+                plane = v[0].T.copy()
+                return state_from_numpy({"keys": k[0], "count": c[0], "sum": plane,
+                                         "min": plane, "max": plane}, device="cpu")
+
+            cache[n] = (state(ka, ca, va), state(kb, cb, vb),
+                        {f: np.asarray(getattr(want, f)) for f in FIELDS})
+        return cache[n]
+
+    return get
+
+
+@pytest.mark.parametrize("n", [64, 256, 1024])
+def test_bitonic_plain_matches_merge_absorb_tiles(n, tiles_reference):
+    """The Pallas kernel's tiles and the reference's compaction against
+    the port's plain version on the same states."""
+    a, b, want = tiles_reference(n)
+    _assert_states(ops.merge_absorb_sorted_bitonic(a, b), want)
 
 
 def _absorbed(n, domain, empty_tail, width):
@@ -303,3 +329,136 @@ def test_bitonic_rejects_u64_keys():
                           "max": np.zeros((4, 0), np.float32)}, device="cpu")
     with pytest.raises(ValueError, match="u32"):
         ma.merge_absorb_bitonic_plain(a, a)
+
+
+# ---------------------------------------------------------------------------
+# the bitonic kernel's network: its plan, and its passes emulated in NumPy
+# ---------------------------------------------------------------------------
+
+_EMPTY32 = 0xFFFFFFFF
+_PHASE3 = [(1_064_960, 16_384), (1_179_648, 65_536), (1_179_648, 1_179_648)]
+
+
+def _log2(x: int) -> int:
+    return x.bit_length() - 1
+
+
+@pytest.mark.parametrize("tile", [16, ma.TILE])
+@pytest.mark.parametrize("na,nb", [
+    (0, 0), (1, 0), (0, 1), (3, 5), (8191, 0), (8192, 0), (8193, 0), (4096, 4097),
+    (65_535, 0), (65_537, 0), (5, 70_000), (1 << 20, 5), (3 << 20, 1 << 20),
+    (1 << 30, 1 << 30), *_PHASE3,
+])
+def test_bitonic_plan_covers_every_stride_once(na, nb, tile):
+    """The global passes and then the tile take each stride from m/2 down to
+    1 once, in order; m is the next power of two of |a| + |b| (at least 2)."""
+    m, tile_m, passes = ma.plan(na, nb, tile)
+    assert m >= max(2, na + nb) and (m == 2 or m // 2 < na + nb) and m & (m - 1) == 0
+    assert tile_m == min(m, tile)
+    assert all(1 <= r <= ma.MAX_R for r in passes)
+    strides, top = [], _log2(m) - 1
+    for r in passes:
+        strides += range(top, top - r, -1)
+        top -= r
+    strides += range(_log2(tile_m) - 1, -1, -1)
+    assert strides == list(range(_log2(m) - 1, -1, -1))
+
+
+@pytest.mark.parametrize("na,nb,want", [(*s, w) for s, w in zip(
+    _PHASE3, [(1 << 21, (4, 4)), (1 << 21, (4, 4)), (1 << 22, (5, 4))])])
+def test_bitonic_plan_at_the_wide_merge_shapes(na, nb, want):
+    """The merge-absorb's shapes of the SF-10 aggregate: two global passes
+    each, the rest in the kernel's tile of 8,192 words."""
+    m, tile, passes = ma.plan(na, nb)
+    assert (m, passes) == want and tile == ma.TILE == 8192
+    # csrc/merge_aggregate.cu: the first stage as the words load, then four
+    # passes of three
+    assert _tile_passes(ma.TILE) == (1, 3, 3, 3, 3)
+
+
+def _tile_passes(tile: int) -> tuple[int, ...]:
+    """The stages of a tile grouped as the kernel groups them: the odd ones
+    first, then passes of three (a thread's 8 words)."""
+    lt = _log2(tile)
+    return ((lt % 3,) if lt % 3 else ()) + (3,) * (lt // 3)
+
+
+def _grouped_stages(w: np.ndarray, r: int, lo: int) -> None:
+    """``r`` compare-exchange stages, strides ``2^(lo+r-1)`` .. ``2^lo``, on
+    each row of ``w`` in place, grouped as the kernel's threads hold them:
+    thread t the positions whose bits [lo, lo + r) vary and whose other
+    bits are t's (each position exactly once)."""
+    t = np.arange(w.shape[1] >> r)
+    low = (1 << lo) - 1
+    idx = ((t & ~low) << r | (t & low))[:, None] + (np.arange(1 << r) << lo)[None, :]
+    assert np.array_equal(np.sort(idx.ravel()), np.arange(w.shape[1]))
+    g = w[:, idx]
+    for h in range(r - 1, -1, -1):
+        for k in range(1 << r):
+            if not k >> h & 1:
+                x, y = g[..., k].copy(), g[..., k | 1 << h].copy()
+                g[..., k], g[..., k | 1 << h] = np.minimum(x, y), np.maximum(x, y)
+    w[:, idx] = g
+
+
+def _emulate(ka: np.ndarray, kb: np.ndarray, tile: int = ma.TILE) -> np.ndarray:
+    """The kernel's network on packed words (key << 32 | src), pass by pass:
+    the permutation of ``a ++ b`` that its first |a| + |b| words give."""
+    na, nb = ka.size, kb.size
+    m, _, passes = ma.plan(na, nb, tile)
+    p = np.arange(m, dtype=np.uint64)
+    q = np.uint64(m - 1) - p  # row q of b, virtually padded to m - na rows
+    key = np.full(m, _EMPTY32, np.uint64)
+    key[:na] = ka
+    in_b = (p >= na) & (q < nb)
+    key[in_b] = kb[q[in_b]]
+    w = (key << np.uint64(32) | np.where(p < na, p, np.uint64(m) + q))[None]
+    top = _log2(m) - 1
+    for r in passes:
+        _grouped_stages(w, r, top - r + 1)
+        top -= r
+    # a network under a tile runs in one tile, the largest word above m
+    w = np.concatenate([w, np.full((1, max(m, tile) - m), ~np.uint64(0))], 1).reshape(-1, tile)
+    top = _log2(tile) - 1
+    for r in _tile_passes(tile):
+        _grouped_stages(w, r, top - r + 1)
+        top -= r
+    src = (w.ravel()[:na + nb] & np.uint64(_EMPTY32)).astype(np.int64)
+    return np.where(src < m, src, src - m + na)
+
+
+def _sorted_side(rng, n: int, domain: int, empty_frac: float) -> np.ndarray:
+    k = rng.integers(0, domain, n).astype(np.uint64)
+    k[rng.random(n) < empty_frac] = _EMPTY32
+    return np.sort(k)
+
+
+@pytest.mark.parametrize("na,nb,domain,empty_frac,tile", [
+    (0, 0, 1, 0.0, ma.TILE), (0, 9, 20, 0.0, 16), (9, 0, 20, 0.0, 16),  # empty sides
+    (1000, 1000, 1, 0.0, 64), (3000, 200, 1, 0.0, ma.TILE),            # all keys equal
+    (700, 300, 50, 0.3, 32), (2500, 3000, 4000, 0.2, 16),               # interior EMPTY
+    (1000, 1000, 1, 1.0, 64),                                           # all EMPTY
+    (1023, 1, 900, 0.1, 64), (1024, 1, 900, 0.1, 64), (1000, 23, 900, 0.1, 64),  # 2^10 +- 1
+    (600, 500, 800, 0.1, 128),      # |a| + |b| above n = next_pow2(max): m = 2n
+    (6000, 3000, 9000, 0.1, ma.TILE), (8191, 1, 5000, 0.1, ma.TILE),  # one global pass; a tile
+])
+def test_bitonic_network_emulation_gives_the_plain_permutation(na, nb, domain, empty_frac,
+                                                                tile):
+    """The kernel's network, emulated on packed words with its passes and
+    threads' positions, orders a ++ b as the plain version's stable argsort
+    does."""
+    rng = np.random.default_rng(na * 7919 + nb)
+    ka, kb = _sorted_side(rng, na, domain, empty_frac), _sorted_side(rng, nb, domain, empty_frac)
+    want = argsort_torch(torch.from_numpy(np.concatenate([ka, kb]).astype(np.int64)))
+    np.testing.assert_array_equal(_emulate(ka, kb, tile), want.numpy())
+
+
+@pytest.mark.parametrize("tile", [16, ma.TILE])
+@pytest.mark.parametrize("n", [64, 256, 1024])
+def test_bitonic_network_emulation_matches_merge_absorb_tiles(n, tile, tiles_reference):
+    """The emulated network's order, gathered and combined, against the
+    Pallas kernel's merge and the reference's compaction."""
+    a, b, want = tiles_reference(n)
+    perm = _emulate(a.keys.numpy().astype(np.uint64), b.keys.numpy().astype(np.uint64), tile)
+    merged = take(concat_states(a, b), torch.from_numpy(perm))
+    _assert_states(segmented_combine_torch(merged), want)
