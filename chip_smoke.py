@@ -26,8 +26,10 @@ with a non-zero exit):
    kernels' sum, and the device's idle share beside the wall;
 4. the u64 path: ``lineitem`` at SF 1 grouped by (``l_partkey``,
    ``l_suppkey``) with SF-10 widths (38 bits), Q20's sum of quantity;
-5. SpillStats parity: one spilling input through the card and through the
-   port's plain CPU path must give equal relations and ``SpillStats``;
+5. SpillStats parity: one spilling input (2^20 SF-10 rows at M = 2^14)
+   through the card and through the port's plain CPU path, by the main
+   path and by every policy and algorithm of phase 10, must give equal
+   states and ``SpillStats``;
 6. the join path at SF 10 (u32): TPC-H ``orders`` made from the seed,
    ``O = aggregate(orders by o_orderkey, sum o_totalprice)`` merge-joined
    with phase 3's result (Q18's join, 15 M matches), Q4's semi and anti
@@ -58,7 +60,21 @@ with a non-zero exit):
    ``WITNESS_SLACK`` of ``torch.bmm``'s or above; every grouped-matmul
    shape lies within one bfloat16 ulp of
    the float32 product plus float32's own bound for summing in another
-   order (``gmm_tolerance``).
+   order (``gmm_tolerance``);
+10. the paper's baselines on phase 3's SF-10 Q18 rows and configuration:
+   the device pipeline's ``traditional``, ``inrun_dedup`` and
+   ``early_agg`` policies; the host loop (``pipeline="host"``) with
+   replacement selection, with read-sort-write early aggregation, and
+   with traditional merges in place of the wide merge; the front door's
+   ``sort_then_stream``, ``hash``, ``f1_hash`` and ``inmemory``
+   algorithms and ``hash`` with ``order_by``; ``intersect_distinct`` of
+   the order keys against phase 6's ``orders``.  Each must equal the
+   NumPy oracle exactly (a hash result as a set, its rows in hash order)
+   and launch its kernels; each logs its wall, rows/s, host syncs, peak
+   device memory and ``SpillStats``, and one line puts them side by side
+   with phase 3's in-sort run.  The argsort's large class is timed at
+   2^20 keys (a traditional batch) and at the SF-10 row count (the
+   in-memory sort), beside ``torch.argsort``.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -868,28 +884,38 @@ def u64_path(dev, rng, sf=1):
 
 
 def spill_parity(dev, rows) -> None:
+    """2^20 SF-10 rows at M = 2^14 (spills, pre-merge and merge levels)
+    through the card and through the port's plain CPU path, by every
+    policy and algorithm: equal states and ``SpillStats``."""
     from repro_torch.core import pipeline
     from repro_torch.core.types import ExecConfig, state_to_numpy
 
     n = 1 << 20
     keys, qty = rows["orderkey"][:n], rows["quantity"][:n]
     cfg = ExecConfig(**SPILL_CFG)
-    got = {}
-    for d in (dev, "cpu"):
-        t0 = time.perf_counter()
-        with capture("spill parity"):
-            state, stats = pipeline.insort_aggregate_device(
-                keys, qty, cfg, output_estimate=n, device=d)
-        got[d] = (state_to_numpy(state), stats.as_dict(), time.perf_counter() - t0)
-    (sa, da, ta), (sb, db, tb) = got[dev], got["cpu"]
-    for f in sa:
-        check_equal(f"spill parity {f}", sa[f], sb[f])
-    if da != db:
-        raise SystemExit(f"FAIL spill parity: SpillStats differ\n{da}\n{db}")
-    if da["rows_spilled_merge"] == 0 or da["runs_generated"] < 2:
-        raise SystemExit(f"FAIL spill parity: the input did not spill through pre-merge: {da}")
-    info = dict(rows=n, stats=da, card_s=ta, cpu_s=tb)
-    log(f"spill parity ok: {json.dumps(info)}")
+    entries = {"rs": lambda d: pipeline.insort_aggregate_device(keys, qty, cfg,
+                                                                output_estimate=n, device=d)}
+    entries.update({name: (lambda d, fn=fn: fn(keys, qty, cfg, d, n))
+                    for name, (_, fn) in baselines().items()})
+    for name, run in entries.items():
+        got = {}
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            with capture("spill parity"):
+                state, stats = run(d)
+            got[d] = (state_to_numpy(state), stats.as_dict(), time.perf_counter() - t0)
+            del state
+        (sa, da, ta), (sb, db, tb) = got[dev], got["cpu"]
+        for f in sa:
+            check_equal(f"spill parity {name} {f}", sa[f], sb[f])
+        if da != db:
+            raise SystemExit(f"FAIL spill parity {name}: SpillStats differ\n{da}\n{db}")
+        if name != "inmemory" and da["total_spill_rows"] == 0:
+            raise SystemExit(f"FAIL spill parity {name}: the input did not spill: {da}")
+        if name == "rs" and (da["rows_spilled_merge"] == 0 or da["runs_generated"] < 2):
+            raise SystemExit(f"FAIL spill parity: the input did not spill through pre-merge: {da}")
+        info = dict(path=name, rows=n, stats=da, card_s=ta, cpu_s=tb)
+        log(f"spill parity ok: {json.dumps(info)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1346,6 +1372,156 @@ def serve_path(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's baselines on SF-10 Q18
+# ---------------------------------------------------------------------------
+
+
+def baselines() -> dict:
+    """The paper's baselines and the in-sort operator's other plans, name ->
+    (the kernels a run must launch, ``f(keys, qty, cfg, device, estimate)
+    -> (state, stats)``, ``estimate`` the output estimate that plans the
+    pre-merge levels): the device pipeline's three other policies, the host loop
+    (replacement selection, read-sort-write early aggregation, and
+    replacement selection with traditional merges instead of the wide
+    merge), and the front door's other algorithms.  Each carries Q18's
+    count and sum, as the main path does."""
+    import repro_torch
+    from repro_torch.core import insort, pipeline
+
+    sum_only = (1, 0, 0)
+
+    def device(policy):
+        return lambda k, q, cfg, d, est: pipeline.insort_aggregate_device(
+            k, q, cfg, policy=policy, widths=sum_only, output_estimate=est, device=d)
+
+    def host(policy, wide=True):
+        return lambda k, q, cfg, d, est: insort.insort_aggregate(
+            k, q, cfg, pipeline="host", run_policy=policy, use_wide_merge=wide,
+            widths=sum_only, output_estimate=est, device=d)
+
+    def front_door(algorithm, order_by=None):
+        def run(k, q, cfg, d, est):
+            res = repro_torch.aggregate({"orderkey": k}, by=repro_torch.KeySpec.of(orderkey=26),
+                                        values=q, aggs=("count", "sum"), algorithm=algorithm,
+                                        order_by=order_by, cfg=cfg, output_estimate=est,
+                                        device=d)
+            return res.state, res.stats
+        return run
+
+    merge = ("argsort", "merge_absorb")
+    return {
+        "traditional": (merge, device("traditional")),
+        "inrun_dedup": (AGG_KERNELS, device("inrun_dedup")),
+        "early_agg": (AGG_KERNELS, device("early_agg")),
+        "host rs": (AGG_KERNELS, host("rs")),
+        "host early_agg": (AGG_KERNELS, host("early_agg")),
+        "host rs, traditional merge": (AGG_KERNELS, host("rs", wide=False)),
+        "sort_then_stream": (merge, front_door("sort_then_stream")),
+        "hash": (AGG_KERNELS, front_door("hash")),
+        "f1_hash": (AGG_KERNELS, front_door("f1_hash")),
+        "inmemory": (("argsort", "segmented_combine"), front_door("inmemory")),
+        "hash, order_by": (AGG_KERNELS, front_door("hash", order_by=True)),
+    }
+
+
+def state_relation(state):
+    """A Q18 state's live (keys, counts, sums) on the host, in its row order."""
+    from repro_torch.core.types import keys_to_numpy
+
+    keys = keys_to_numpy(state.keys, state.key_dtype)
+    live = keys != np.iinfo(keys.dtype).max
+    return (keys[live], state.count.cpu().numpy()[live],
+            state.sum[:, 0].cpu().numpy().astype(np.float64)[live])
+
+
+def check_q18(name: str, state, q18, *, hash_order: bool) -> None:
+    """Equal to the NumPy oracle exactly; a hash result as a set, and its
+    rows in hash order."""
+    from repro_torch.core.hash_agg import _np_hash
+
+    keys, cnt, sums = state_relation(state)
+    if hash_order:
+        h = _np_hash(keys)
+        if not bool(np.all(h[1:] > h[:-1])):
+            raise SystemExit(f"FAIL {name}: the rows are not in hash order")
+        order = np.argsort(keys)
+        keys, cnt, sums = keys[order], cnt[order], sums[order]
+    uk, ucnt, usums = q18
+    check_equal(f"{name} keys", keys, uk)
+    check_equal(f"{name} counts", cnt, ucnt)
+    check_equal(f"{name} sums", sums, usums)
+
+
+# the baselines whose argsort calls are timed: the large class at 2^20 keys
+# (a traditional batch) and at the SF-10 row count (the in-memory sort)
+TIMED_ARGSORT = ("traditional", "inmemory")
+
+
+def baselines_path(dev, rows, q18, rng, by_path: dict, main: dict) -> dict:
+    """Phase 10: every baseline on SF-10 Q18 (phase 3's rows and cfg) and
+    ``intersect_distinct`` of its order keys against ``orders``', each held
+    to the NumPy oracle, with its kernels' launches, wall, rows/s, host
+    syncs, peak device memory and ``SpillStats``."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core import operators
+    from repro_torch.core.types import SYNCS, keys_to_numpy
+    from repro_torch.kernels import ops
+
+    cfg = repro_torch.ExecConfig(**MAIN_CFG)
+    keys, qty = rows["orderkey"], rows["quantity"]
+    n = keys.size
+    summary = {}
+
+    def run(path, kernels, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        SYNCS["host_syncs"] = 0
+        with capture(path):
+            out, wall = timed(fn)
+        launches = dict(ops.LAUNCHES)
+        by_path[path] = launches
+        require_launches(path, launches, kernels)
+        return out, dict(wall_s=wall, rows_per_s=n / wall, host_syncs=SYNCS["host_syncs"],
+                         max_memory_allocated=torch.cuda.max_memory_allocated(),
+                         launches=launches)
+
+    for name, (kernels, fn) in baselines().items():
+        path = f"baseline {name}"
+        (state, stats), info = run(path, kernels, lambda: fn(keys, qty, cfg, dev, None))
+        if state.device.type != "cuda":
+            raise SystemExit(f"FAIL {path}: ran on {state.device}")
+        check_q18(path, state, q18, hash_order=name in ("hash", "f1_hash"))
+        del state
+        info.update(rows=n, stats=stats.as_dict())
+        summary[name] = dict(wall_s=info["wall_s"], spill_rows=stats.total_spill_rows,
+                             host_syncs=info["host_syncs"])
+        log(f"{path} ok: {json.dumps(info)}")
+        settle(path, ("argsort",) if name in TIMED_ARGSORT else ())
+
+    # Q18's order keys intersected with those of orders (phase 6's table):
+    # every order has a line, so the intersection is every order key
+    i = np.arange(15_000_000, dtype=np.int64)
+    okeys = ((i // 8) * 32 + (i % 8) + 1).astype(np.uint32)[rng.permutation(i.size)]
+    path = "baseline intersect_distinct"
+    (common, stats), info = run(path, AGG_KERNELS + ("join_probe",),
+                                lambda: operators.intersect_distinct(keys, okeys, cfg, device=dev))
+    got = keys_to_numpy(common, np.uint32)
+    check_equal(f"{path} keys", got[got != np.iinfo(np.uint32).max], q18[0])
+    del common
+    info.update(rows=n + okeys.size, stats=stats.as_dict())
+    log(f"{path} ok: {json.dumps(info)}")
+    settle(path)
+    summary["insort (phase 3, rs)"] = dict(wall_s=main["wall_s"],
+                                          spill_rows=main["stats"]["total_spill_rows"],
+                                          host_syncs=main["host_syncs"])
+    log(f"baselines side by side (SF-10 Q18, {n} rows): {json.dumps(summary)}")
+    return summary
+
+
 def kernel_records(by_path: dict) -> list[dict]:
     """The kernels' JSON records: each kernel timed and counted on its own
     path, the aggregate's (phase 3) for the aggregate kernels, the merge
@@ -1416,7 +1592,7 @@ def main() -> int:
     settle("spill parity")
     by_path = {"aggregate": main["launches"]}
     by_path["merge_join"], by_path["join_aggregate"] = join_path(dev, L, q18, rows, rng)
-    del L, rows
+    del L
     by_path["pipeline"] = pipeline_path(dev, L20, q20, rng)
     del L20
     settle("pipeline inputs")
@@ -1425,6 +1601,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()  # the serve path needs ~62 of the card's 80 GB
     by_path["serve"] = serve_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    baselines_path(dev, rows, q18, rng, by_path, main)
     kernels = kernel_records(by_path)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

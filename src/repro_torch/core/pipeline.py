@@ -1,21 +1,29 @@
 """The one-shot external aggregation pipeline on the device (counterpart of
-the one-shot part of :mod:`repro.core.pipeline`): replacement-selection
-run generation (§3.3) into a stacked run store, the statically planned
-§4.3 pre-merge levels, then the wide merge (§4).
+the one-shot part of :mod:`repro.core.pipeline`): run generation under one
+of four policies into a stacked run store, the statically planned §4.3
+pre-merge levels, then the wide merge (§4).
+
+The policies are the reference's: ``traditional`` and ``inrun_dedup``
+write one run per M-row batch (sorted, or sorted and combined),
+``early_agg`` absorbs B-row batches into an ordered index of M rows and
+writes the whole index when it overflows, ``rs`` is replacement
+selection over two partitions (§3.3).
 
 The reference compiles this into one program: a ``lax.scan`` over input
 batches whose eviction loop is a data-dependent ``while_loop``.  PyTorch
-runs eagerly, so here the eviction loop reads the two table occupancies
-back once per trip (counted in ``types.SYNCS``) and keeps the run
-bookkeeping — run lengths, write cursor, run slot, spill count — as host
-integers derived from them.  The geometry is the reference's (pow2-
-bucketed ``n_pad``, run slots ``R`` of ``C`` rows, ``out_capacity``), so
-``SpillStats`` match bit for bit; the trailing all-EMPTY batches of the
-pow2 bucket are no-ops and are skipped.  Only the ``rs`` policy is ported.
+runs eagerly, so here each flush decision reads occupancies back
+(``rs``: the two tables once per trip of its eviction loop; the other
+policies once per batch), counted in ``types.SYNCS``, and the run
+bookkeeping — run lengths, write cursor, run slot, spill count — stays
+in host integers derived from them.  The geometry is the reference's
+(pow2-bucketed ``n_pad``, run slots ``R`` of ``C`` rows,
+``out_capacity``), so ``SpillStats`` match bit for bit; the trailing
+all-EMPTY batches of the pow2 bucket are no-ops and are skipped.
 """
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+
 import torch
 
 from repro_torch.core import dispatch
@@ -30,6 +38,7 @@ from repro_torch.core.types import (
     SpillStats,
     StreamEngineState,
     canon_keys,
+    canon_payload,
     empty_like,
     empty_state,
     host_ints,
@@ -39,8 +48,7 @@ from repro_torch.core.types import (
     zero_key,
 )
 
-POLICIES = ("rs",)
-_NOT_PORTED = ("traditional", "inrun_dedup", "early_agg")
+POLICIES = ("traditional", "inrun_dedup", "early_agg", "rs")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,21 +62,16 @@ def _num_batches(n: int, chunk: int) -> int:
     return 1 << (t - 1).bit_length() if t > 1 else t
 
 
-def _check_policy(policy: str) -> None:
-    if policy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"run-generation policy {policy!r} is not ported yet (ROADMAP Queue 1, "
-            "'other policies of the device pipeline'); use policy='rs'"
-        )
-    if policy not in POLICIES:
-        raise ValueError(f"unknown run-generation policy {policy!r}")
-
-
 def _engine_geometry(policy: str, M: int, B: int, P: int):
     """(input chunk rows, run-slot rows, table capacity, second-table
-    capacity) of a policy."""
-    _check_policy(policy)
-    return B, _round_up(2 * M + 2 * B, P), M + 2 * B, M + 2 * B
+    capacity) of a policy; a table a policy does not use has capacity 0."""
+    if policy in ("traditional", "inrun_dedup"):
+        return M, _round_up(M, P), 0, 0
+    if policy == "early_agg":
+        return B, _round_up(M + B, P), M, 0
+    if policy == "rs":
+        return B, _round_up(2 * M + 2 * B, P), M + 2 * B, M + 2 * B
+    raise ValueError(f"unknown run-generation policy {policy!r}")
 
 
 def _stacked_empty(slots: int, rows: int, width: int, *, key_dtype, widths, device) -> AggState:
@@ -101,6 +104,45 @@ def _write_slot(store: AggState, slot: int, start: int, state: AggState) -> None
     rows = min(state.capacity, C - start)
     for f in FIELDS:
         getattr(store, f)[slot, start:start + rows] = getattr(state, f)[:rows]
+
+
+def _step_sortwrite(es: StreamEngineState, ck: torch.Tensor, cp, *, dedup: bool,
+                    backend: str, ws) -> None:
+    """``traditional`` / ``inrun_dedup``: one run per M-row batch, sorted
+    (and with ``dedup`` combined), written to the next run slot; a batch
+    with no valid row writes nothing."""
+    st = rows_to_state(ck, cp, key_dtype=es.store.key_dtype, widths=ws)
+    st = (sorted_ops.absorb if dedup else sorted_ops.sort_state)(st, backend=backend)
+    (occ,) = host_ints(st.occupancy())
+    if occ == 0:
+        return
+    _write_slot(es.store, es.ridx, 0, st)
+    if es.ridx < es.run_slots:
+        es.lens[es.ridx] = occ
+    es.ridx += 1
+    es.spilled += occ
+
+
+def _step_early_agg(es: StreamEngineState, ck: torch.Tensor, cp, *, M: int, backend: str,
+                    ws) -> None:
+    """``early_agg`` (§3): the ordered in-memory index absorbs each sorted,
+    deduped batch; when its occupancy passes M the whole index content is
+    written to the next run slot and memory restarts empty."""
+    kd = es.table.key_dtype
+    batch = sorted_ops.absorb(rows_to_state(ck, cp, key_dtype=kd, widths=ws), backend=backend)
+    merged = sorted_ops.merge_absorb(es.table, batch, backend=backend,
+                                     assume_unique=True)  # capacity M + B
+    (occ,) = host_ints(merged.occupancy())
+    if occ > M:
+        _write_slot(es.store, es.ridx, 0, merged)
+        if es.ridx < es.run_slots:
+            es.lens[es.ridx] = occ
+        es.ridx += 1
+        es.spilled += occ
+        es.table = empty_like(es.table, es.table.capacity)
+    else:
+        cap = es.table.capacity
+        es.table = merged.map(lambda x: x[:cap])
 
 
 def _step_rs(es: StreamEngineState, ck: torch.Tensor, cp, *, M: int, B: int, backend: str,
@@ -140,12 +182,39 @@ def _step_rs(es: StreamEngineState, ck: torch.Tensor, cp, *, M: int, B: int, bac
             es.spilled += n_ev
 
 
-def _engine_finish(es: StreamEngineState):
-    """Drain the engine: the open run finishes with the open partition's
-    remainder (its own slot when there is room, the next one otherwise),
-    then the next-run partition becomes the last run.  Returns
-    ``(store, lens, spilled, nruns, overflow)`` with host ints."""
+def _engine_step(es: StreamEngineState, ck: torch.Tensor, cp, *, policy: str, M: int,
+                 B: int, backend: str, ws) -> None:
+    """Advance the engine by one input batch."""
+    if policy in ("traditional", "inrun_dedup"):
+        _step_sortwrite(es, ck, cp, dedup=policy == "inrun_dedup", backend=backend, ws=ws)
+    elif policy == "early_agg":
+        _step_early_agg(es, ck, cp, M=M, backend=backend, ws=ws)
+    else:
+        _step_rs(es, ck, cp, M=M, B=B, backend=backend, ws=ws)
+
+
+def _engine_finish(es: StreamEngineState, *, policy: str):
+    """Drain the engine into the run slots.  Returns ``(store, lens,
+    table, spilled, nruns, overflow)`` with host ints and lists.
+
+    ``early_agg`` mirrors the resident table into the next slot, so the
+    wide merge always sees the whole picture; it counts as a spilled run
+    only when earlier runs spilled (the host loop's rule).  ``rs``
+    finishes the open run with the open partition's remainder (its own
+    slot when there is room, the next one otherwise), then the next-run
+    partition becomes the last run."""
     R, C = es.run_slots, es.slot_rows
+    if policy in ("traditional", "inrun_dedup"):
+        return es.store, list(es.lens), es.table, es.spilled, es.ridx, es.ridx > R
+    if policy == "early_agg":
+        (occ_t,) = host_ints(es.table.occupancy())
+        lens = list(es.lens)
+        _write_slot(es.store, es.ridx, 0, es.table)
+        if es.ridx < R:
+            lens[es.ridx] = occ_t
+        spilled = es.spilled + occ_t if es.ridx > 0 else 0
+        nruns = es.ridx + (1 if es.ridx > 0 and occ_t > 0 else 0)
+        return es.store, lens, es.table, spilled, nruns, es.ridx + 1 > R
     rt, nt = es.table, es.table2
     occ_r, occ_n = host_ints(rt.occupancy(), nt.occupancy())
     cursor, ridx, lens = es.cursor, es.ridx, list(es.lens)
@@ -173,7 +242,7 @@ def _engine_finish(es: StreamEngineState):
         ridx += 1
     spilled = es.spilled + occ_r + occ_n if evicted_any else 0
     nruns = ridx if evicted_any else 0
-    return es.store, lens, spilled, nruns, ridx > R
+    return es.store, lens, rt, spilled, nruns, ridx > R
 
 
 def _slots_for(n_pad: int, M: int, extra: int) -> int:
@@ -183,8 +252,10 @@ def _slots_for(n_pad: int, M: int, extra: int) -> int:
 
 
 def _stream_run_slots(policy: str, n_pad: int, M: int) -> int:
-    _check_policy(policy)
-    return _slots_for(n_pad, M, 4)
+    """Run-slot bound from the padded row count alone."""
+    if policy in ("traditional", "inrun_dedup"):
+        return max(1, n_pad // M)  # one run per M-row batch
+    return _slots_for(n_pad, M, 2 if policy == "early_agg" else 4)
 
 
 def _static_run_slots(policy: str, n: int, M: int, B: int) -> int:
@@ -276,7 +347,10 @@ def _merge_phase(store: AggState, lens: torch.Tensor, spilled: int, nruns: int,
 
 def _pipeline_body(keys: torch.Tensor, payload, *, key_dtype, policy: str, memory_rows: int,
                    batch_rows: int, page_rows: int, index_rows: int, fanin: int,
-                   premerge_levels: int, backend: str, widths):
+                   premerge_levels: int, backend: str, widths, merge: bool = True):
+    """Run generation over the batches, then (``merge``) the merge phase:
+    ``(out, stats)``; without ``merge``, ``(store, lens, table, stats)``
+    after run generation."""
     M, B, P = memory_rows, batch_rows, page_rows
     chunk = _engine_geometry(policy, M, B, P)[0]
     n = keys.shape[0]
@@ -296,23 +370,55 @@ def _pipeline_body(keys: torch.Tensor, payload, *, key_dtype, policy: str, memor
             payload = torch.cat([payload, payload.new_zeros((padn, width))])
     for b in range(t_real):
         rows = slice(b * chunk, (b + 1) * chunk)
-        _step_rs(es, keys[rows], None if payload is None else payload[rows], M=M, B=B,
-                 backend=backend, ws=ws)
-    store, lens, spilled, nruns, overflow = _engine_finish(es)
+        _engine_step(es, keys[rows], None if payload is None else payload[rows],
+                     policy=policy, M=M, B=B, backend=backend, ws=ws)
+    store, lens, table, spilled, nruns, overflow = _engine_finish(es, policy=policy)
+    lens = torch.tensor(lens, dtype=torch.int64, device=dev)
+    if not merge:
+        stats = dataclasses.replace(DeviceSpillStats.zeros(),
+                                    rows_spilled_run_generation=spilled,
+                                    runs_generated=nruns, run_buffer_overflowed=overflow)
+        return store, lens, table, stats
     return _merge_phase(
-        store, torch.tensor(lens, dtype=torch.int64, device=dev), spilled, nruns, overflow,
-        page_rows=P, index_rows=index_rows, fanin=fanin, premerge_levels=premerge_levels,
-        backend=backend, out_capacity=max(n_pad, 1),
+        store, lens, spilled, nruns, overflow, page_rows=P, index_rows=index_rows,
+        fanin=fanin, premerge_levels=premerge_levels, backend=backend,
+        out_capacity=max(n_pad, 1),
     )
 
 
-def _canon_inputs(keys, payload):
-    keys = canon_keys(keys)
-    if payload is not None:
-        payload = np.asarray(payload, dtype=np.float32)
-        if payload.ndim == 1:
-            payload = payload[:, None]
-    return keys, payload
+def _prepare(keys, payload, widths, device, backend):
+    """Canonical host input, the device and the concrete backend."""
+    dev = resolve_device(device)
+    backend = dispatch.resolve_backend_name(backend, dev)
+    keys, payload = canon_keys(keys), canon_payload(payload)
+    if payload is None:
+        widths = (0, 0, 0) if widths is None else widths
+    return keys, payload, widths, dev, backend
+
+
+def _check_policy(policy: str) -> None:
+    if policy not in POLICIES:
+        raise ValueError(f"unknown policy {policy!r}; expected one of {POLICIES}")
+
+
+def generate_runs_device(keys, payload=None, cfg: ExecConfig | None = None, *,
+                         policy: str = "early_agg", backend: str = "auto", widths=None,
+                         device="cuda"):
+    """Run generation alone on the device.  Returns ``(store, lens, table,
+    dstats)``: the stacked run store (fields ``(R, C, ...)``), the run
+    lengths (an int64 tensor), the resident table and the run-generation
+    :class:`DeviceSpillStats`.  The host loop with the same semantics is
+    :func:`repro_torch.core.run_generation.generate_runs`."""
+    cfg = cfg or ExecConfig()
+    _check_policy(policy)
+    keys, payload, widths, dev, backend = _prepare(keys, payload, widths, device, backend)
+    pt = None if payload is None else torch.from_numpy(payload).to(dev)
+    return _pipeline_body(
+        keys_to_torch(keys, dev), pt, key_dtype=keys.dtype, policy=policy,
+        memory_rows=cfg.memory_rows, batch_rows=cfg.batch_rows, page_rows=cfg.page_rows,
+        index_rows=cfg.memory_rows, fanin=cfg.fanin, premerge_levels=0, backend=backend,
+        widths=widths, merge=False,
+    )
 
 
 def aggregate_device(keys, payload=None, cfg: ExecConfig | None = None, *,
@@ -325,11 +431,7 @@ def aggregate_device(keys, payload=None, cfg: ExecConfig | None = None, *,
     never changes the answer."""
     cfg = cfg or ExecConfig()
     _check_policy(policy)
-    dev = resolve_device(device)
-    backend = dispatch.resolve_backend_name(backend, dev)
-    keys, payload = _canon_inputs(keys, payload)
-    if payload is None:
-        widths = (0, 0, 0) if widths is None else widths
+    keys, payload, widths, dev, backend = _prepare(keys, payload, widths, device, backend)
     if keys.shape[0] == 0:
         width = 0 if payload is None else payload.shape[1]
         return (empty_state(0, width, key_dtype=keys.dtype, widths=widths, device=dev),

@@ -7,9 +7,10 @@ operators that consume its key order: :meth:`AggResult.merge_join`
 :func:`pipeline`.
 
 ``KeySpec.pack``/``unpack``/``shift_of``/``prefix`` are NumPy code copied
-from the reference, so the port imports nothing of it.  Only one-shot
-input with the in-sort algorithm on the device pipeline is ported;
-streamed input, the hash baselines and the mesh wait in ROADMAP.
+from the reference, so the port imports nothing of it.  One-shot input
+runs every algorithm of the reference (the in-sort operator on the device
+pipeline or the host loop, the hash, F1-hash, sort-then-stream and
+in-memory baselines); streamed input and the mesh wait in ROADMAP.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import cost_model, dispatch, sorted_ops
-from repro_torch.core import insort as insort_mod
 from repro_torch.core import merge_join as mj_mod
 from repro_torch.core.types import (
     INT64_MIN,
@@ -300,6 +300,11 @@ class AggResult:
         }
         left, right = mj_mod.merge_join(self.state, other.state, how=how, backend=backend)
         products = _join_products_state(left, right) if how == "inner" else None
+        dev_type = self.state.device.type
+        plan["cost_model"] = cost_model.join_cost_surface(
+            self.state.capacity, other.state.capacity, inputs_sorted=True, backend=dev_type)
+        plan["cost_model_resort_baseline"] = cost_model.join_cost_surface(
+            self.state.capacity, other.state.capacity, inputs_sorted=False, backend=dev_type)
         return JoinResult(
             left=left, right=right, products=products, by=self.by, left_aggs=self.aggs,
             right_aggs=other.aggs, stats=SpillStats.reduce_shards([self.stats, other.stats]),
@@ -560,52 +565,71 @@ def _resolve_order_by(order_by, by: KeySpec) -> bool:
     return True
 
 
-def _plan(n_rows: int, cfg: ExecConfig, output_estimate: int | None) -> dict:
-    """Predicted spill volumes of the in-sort operator and the hash
-    baseline (paper Fig 23/24).  The reference's calibrated ``cost_model``
-    entry has no CUDA constants yet and is left out."""
+def _plan(n_rows: int, cfg: ExecConfig, output_estimate: int | None, *,
+          input_sorted: bool = False, device_type: str = "cpu") -> dict:
+    """Optimizer-style comparison (paper Figs 23/24): the predicted spill
+    volumes of the in-sort operator and the hash baseline, and the
+    calibrated cost surface of the run-generation policies.  The surface
+    is looked up by device type; with no ``"cuda"`` constants committed,
+    a card's plan carries the CPU's (``calibrated_backend`` says which).
+    ``input_sorted`` credits a key order an upstream ``aggregate``
+    established: the sort term of the predicted cost is zero."""
     O = output_estimate or cfg.memory_rows * cfg.fanin
     insort_cb = cost_model.simulate_insort(
         n_rows, O, cfg.memory_rows, cfg.fanin,
         early_aggregation=True, wide_merge=True, replacement_selection=True,
     )
     hash_cb = cost_model.simulate_hash(n_rows, O, cfg.memory_rows, cfg.fanin, hybrid=True)
+    levels = max(1, cost_model.merge_levels_insort(O, cfg.memory_rows, cfg.fanin))
     return {
         "input_rows": n_rows,
         "output_estimate": O,
         "in_memory": n_rows <= cfg.memory_rows,
+        "input_sorted": input_sorted,
         "predicted_spill_insort": insort_cb.total_spill,
         "predicted_spill_hash": hash_cb.total_spill,
+        "cost_model": cost_model.cost_surface(n_rows, O, backend=device_type,
+                                              merge_levels=levels, input_sorted=input_sorted),
     }
 
 
 def aggregate(columns, *, by: KeySpec, values=None,
               aggs: AggSpec | Sequence[str] | str = ("count",), order_by=None,
               algorithm: str = "auto", backend: str = "auto", cfg: ExecConfig | None = None,
-              output_estimate: int | None = None, pipeline: str = "device",
-              device="cuda") -> AggResult:
+              output_estimate: int | None = None, input_sorted: bool = False,
+              pipeline: str = "device", device="cuda") -> AggResult:
     """Duplicate removal / grouping / aggregation behind one front door.
 
     ``columns``: mapping of key-column name → integer vector (or a
     significance-ordered sequence), packed per ``by``; ``values`` the
     optional (N, V) float payload; ``aggs`` the requested aggregates.
-    ``algorithm`` is ``"auto"`` or ``"insort"`` (the same operator).
-    ``device`` defaults to ``"cuda"`` and raises where there is no card;
-    ``device="cpu"`` runs the plain versions."""
+    ``order_by`` (True, or a prefix of ``by``'s columns) asks for a
+    key-sorted result: free for the sort-based algorithms, one more sort
+    for the hash baselines.  ``algorithm``: ``"auto"`` (the in-sort
+    operator, the paper's only choice), ``"insort"``, ``"hash"``,
+    ``"f1_hash"``, ``"sort_then_stream"`` or ``"inmemory"``.
+    ``input_sorted`` asserts the input arrives in key order; the plan's
+    cost surface then credits a zero sort term.  ``device`` defaults to
+    ``"cuda"`` and raises where there is no card; ``device="cpu"`` runs
+    the plain versions."""
+    from repro_torch.core.operators import ALGORITHMS, group_by  # imports this module
+
     cfg = cfg or ExecConfig()
     if not isinstance(aggs, AggSpec):
         aggs = AggSpec(aggs) if isinstance(aggs, str) else AggSpec(*aggs)
     if isinstance(columns, Iterator):
         raise NotImplementedError(
-            "streamed input is not ported yet (ROADMAP Queue 1, streaming and adaptive)")
-    if algorithm not in ("auto", "insort"):
-        raise NotImplementedError(
-            f"algorithm {algorithm!r} is not ported yet (ROADMAP Queue 1, other one-shot "
-            "algorithms); use 'auto' or 'insort'"
-        )
+            "streamed input is not ported yet (ROADMAP Queue 1 item 9, streaming and adaptive)")
+    if algorithm == "adaptive":
+        raise ValueError(
+            "algorithm='adaptive' adapts mid-stream: it needs streamed input (not ported "
+            "yet, ROADMAP Queue 1 item 9); one-shot input is planned up front with "
+            "algorithm='auto'")
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}; expected one of {ALGORITHMS}")
     dev = resolve_device(device)
     packed = by.pack(columns)
-    _resolve_order_by(order_by, by)  # the in-sort result is always key-sorted
+    want_sorted = _resolve_order_by(order_by, by)
     if values is not None:
         values = np.asarray(values, dtype=np.float32)
         if values.ndim == 1:
@@ -617,15 +641,19 @@ def aggregate(columns, *, by: KeySpec, values=None,
         widths = (0, 0, 0)
         if aggs.needs_payload():
             raise ValueError(f"aggregates {aggs.names} need a payload; pass values=...")
-    plan = _plan(len(packed), cfg, output_estimate)
-    plan["backend"] = dispatch.resolve_backend_name(backend, dev)
-    plan["algorithm"] = "insort"
-    plan["pipeline"] = pipeline
+    plan = _plan(len(packed), cfg, output_estimate, input_sorted=input_sorted,
+                 device_type=dev.type)
+    backend = dispatch.resolve_backend_name(backend, dev)
+    plan["backend"] = backend
+    plan["algorithm"] = "insort" if algorithm == "auto" else algorithm
+    plan["pipeline"] = pipeline if algorithm in ("auto", "insort") else "host"
     plan["device"] = str(dev)
-    state, stats = insort_mod.insort_aggregate(
-        packed, values, cfg, output_estimate=output_estimate, backend=plan["backend"],
-        widths=widths, pipeline=pipeline, device=dev,
-    )
+    state, stats = group_by(packed, values, cfg, algorithm=algorithm,
+                            output_estimate=output_estimate, backend=backend, widths=widths,
+                            pipeline=pipeline, device=dev)
+    if want_sorted and algorithm in ("hash", "f1_hash"):
+        # hash order → key order: the sort the paper's operator never pays (Fig 19)
+        state = sorted_ops.sort_state(state, backend=backend)
     return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan)
 
 

@@ -87,6 +87,14 @@ def canon_keys(keys) -> np.ndarray:
     return keys if keys.dtype == np.uint64 else keys.astype(np.uint32)
 
 
+def canon_payload(payload) -> np.ndarray | None:
+    """A host payload as float32 (N, V) (a vector is one column)."""
+    if payload is None:
+        return None
+    payload = np.asarray(payload, dtype=np.float32)
+    return payload[:, None] if payload.ndim == 1 else payload
+
+
 def keys_to_torch(keys, device) -> torch.Tensor:
     """uint32/uint64 host keys → the port's int64 key tensor."""
     keys = canon_keys(keys)

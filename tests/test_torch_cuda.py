@@ -20,8 +20,8 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import insort, instream, operators, pipeline
 from repro_torch.core import ordered_index as oi
-from repro_torch.core import pipeline
 from repro_torch.core.types import (
     ExecConfig,
     empty_key,
@@ -81,7 +81,7 @@ def _assert_same(a, b):
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
 @pytest.mark.parametrize("keys", ["30% empty", "all equal", "all empty"])
 @pytest.mark.parametrize("n", [1, 32, 33, 1024, 1025, 2049, 8191, 8192, 8193, 65535, 65536,
-                               65537, 70000, 1 << 20])
+                               65537, 70000, 1 << 20, (1 << 20) + 1])
 def test_argsort_kernel_matches_plain(dev, n, keys, key_dtype):
     domain, empty_frac = {"30% empty": (max(1, n // 4), 0.3), "all equal": (1, 0.0),
                           "all empty": (1, 1.0)}[keys]
@@ -206,6 +206,77 @@ def test_pipeline_on_the_card_matches_cpu(dev, key_dtype):
     a, b = state_to_numpy(sa), state_to_numpy(sb)
     for f in a:
         np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+def _baseline(name):
+    """The paper's baselines and the host loop, each as ``f(keys, payload,
+    cfg, device) -> (state, stats)``."""
+    host = dict(host_rs=("rs", True), host_early_agg=("early_agg", True),
+                host_traditional_merge=("rs", False))
+    if name in ("traditional", "inrun_dedup", "early_agg"):
+        return lambda k, p, cfg, d: pipeline.insort_aggregate_device(
+            k, p, cfg, policy=name, output_estimate=1 << 14, device=d)
+    if name in host:
+        policy, wide = host[name]
+        return lambda k, p, cfg, d: insort.insort_aggregate(
+            k, p, cfg, pipeline="host", run_policy=policy, use_wide_merge=wide,
+            output_estimate=1 << 14, device=d)
+    return lambda k, p, cfg, d: operators.group_by(k, p, cfg, algorithm=name, device=d)
+
+
+BASELINES = ("traditional", "inrun_dedup", "early_agg", "host_rs", "host_early_agg",
+             "host_traditional_merge", "sort_then_stream", "hash", "f1_hash", "inmemory")
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_on_the_card_matches_cpu(dev, name, key_dtype):
+    """Each policy and algorithm on the card equals its plain CPU run: the
+    state (integer payloads: exact), ``SpillStats``, and the argsort
+    launched on the card."""
+    keys = RNG.integers(0, 3000, 20_000).astype(key_dtype)
+    if key_dtype == np.uint64:
+        keys = keys * np.uint64(0xF000000000000000 // 3000) + np.uint64(5)
+    pay = RNG.integers(0, 50, (20_000, 1)).astype(np.float32)
+    cfg = ExecConfig(memory_rows=512, batch_rows=128, page_rows=64, fanin=4)
+    ops.reset_launch_counts()
+    sa, da = _baseline(name)(keys, pay, cfg, dev)
+    assert ops.LAUNCHES["argsort"] > 0
+    sb, db = _baseline(name)(keys, pay, cfg, "cpu")
+    assert da.as_dict() == db.as_dict()
+    a, b = state_to_numpy(sa), state_to_numpy(sb)
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.mark.parametrize("n,chunk,domain", [(20_000, 1024, 3000), (5000, 300, 1), (1, 16, 5),
+                                            (0, 16, 5)])
+def test_instream_on_the_card_matches_cpu(dev, n, chunk, domain):
+    keys = np.sort(RNG.integers(0, domain, n).astype(np.uint32))
+    pay = RNG.integers(0, 50, (n, 2)).astype(np.float32)
+    ops.reset_launch_counts()
+    sa, ga = instream.instream_aggregate(keys, pay, chunk=chunk, device=dev)
+    assert ops.LAUNCHES["segmented_combine"] == -(-n // chunk)
+    sb, gb = instream.instream_aggregate(keys, pay, chunk=chunk, device="cpu")
+    assert int(ga) == int(gb)
+    a, b = state_to_numpy(sa), state_to_numpy(sb)
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+
+
+@pytest.mark.parametrize("algorithm", ["insort", "hash"])
+def test_intersect_distinct_on_the_card_matches_cpu(dev, algorithm):
+    a = RNG.integers(0, 9000, 30_000).astype(np.uint32)
+    b = RNG.integers(4000, 20_000, 12_000).astype(np.uint32)
+    cfg = ExecConfig(memory_rows=1024, batch_rows=256, page_rows=128, fanin=4)
+    ops.reset_launch_counts()
+    ka, sa = operators.intersect_distinct(a, b, cfg, algorithm=algorithm, device=dev)
+    assert ops.LAUNCHES["join_probe"] == 1
+    kb, sb = operators.intersect_distinct(a, b, cfg, algorithm=algorithm, device="cpu")
+    assert sa.as_dict() == sb.as_dict()
+    assert torch.equal(ka.cpu(), kb)
+    got = ka.cpu().numpy()
+    np.testing.assert_array_equal(got[got != empty_key(np.uint32)], np.intersect1d(a, b))
 
 
 @pytest.mark.parametrize("bits", [dict(region=6, store=8), dict(partkey=21, suppkey=17)],

@@ -18,6 +18,7 @@ from repro.core.types import ExecConfig as JExecConfig
 from repro_torch.core import merge as merge_mod
 from repro_torch.core import pipeline, run_generation
 from repro_torch.core.insort import insort_aggregate
+from repro_torch.core.operators import validate_against_oracle
 from repro_torch.core.types import (
     INT64_MIN,
     SYNCS,
@@ -133,14 +134,22 @@ def test_rs_frontier_zero_is_the_mapped_u64_zero():
 
 @pytest.mark.parametrize("policy", ["traditional", "inrun_dedup", "early_agg"])
 def test_unported_policies_raise(policy):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.insort_aggregate_device(np.arange(10, dtype=np.uint32), None,
-                                         policy=policy, device="cpu")
+    """The three policies that raised until the baselines were ported now
+    run and give the oracle's groups; an unknown policy still raises."""
+    keys = np.arange(10, dtype=np.uint32) % 4
+    state, stats = pipeline.insort_aggregate_device(keys, None, policy=policy, device="cpu")
+    assert validate_against_oracle(state, keys) and stats.rows_emitted <= keys.size
+    with pytest.raises(ValueError, match="unknown policy"):
+        pipeline.insort_aggregate_device(keys, None, policy=policy + "x", device="cpu")
 
 
 def test_host_pipeline_raises():
+    """The host loop runs now; the mesh it cannot take still raises."""
+    keys = np.arange(10, dtype=np.uint32) % 4
+    state, _ = insort_aggregate(keys, pipeline="host", device="cpu")
+    assert validate_against_oracle(state, keys)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        insort_aggregate(np.arange(10, dtype=np.uint32), pipeline="host", device="cpu")
+        insort_aggregate(keys, pipeline="host", mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("capacity,dropped", [(6, False), (5, True)])

@@ -93,7 +93,15 @@ def test_order_by_must_be_a_key_prefix():
 
 
 def test_unported_algorithms_raise():
+    """Every one-shot algorithm runs now; only the streaming ones raise:
+    ``"adaptive"`` on one-shot input (as the reference does) and streamed
+    input, which is not ported."""
     _, cols, _ = _columns("narrow_24bit", n=50)
     spec = repro_torch.KeySpec.of(year=12, month=4, day=8)
+    with pytest.raises(ValueError, match="adaptive"):
+        repro_torch.aggregate(cols, by=spec, algorithm="adaptive", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.aggregate(cols, by=spec, algorithm="hash", device="cpu")
+        repro_torch.aggregate(iter([cols]), by=spec, device="cpu")
+    res = repro_torch.aggregate(cols, by=spec, algorithm="hash", device="cpu")
+    assert res.plan["algorithm"] == "hash" and res.occupancy() == len(
+        np.unique(spec.pack(cols)))
