@@ -74,7 +74,20 @@ with a non-zero exit):
    device memory and ``SpillStats``, and one line puts them side by side
    with phase 3's in-sort run.  The argsort's large class is timed at
    2^20 keys (a traditional batch) and at the SF-10 row count (the
-   in-memory sort), beside ``torch.argsort``.
+   in-memory sort), beside ``torch.argsort``;
+11. the streamed path: a) phase 3's rows as 15 column batches of 2^22
+   rows (``repro_torch.data.pipeline.iter_column_batches``) through
+   ``repro_torch.aggregate(algorithm="insort")``, equal to phase 3's rows
+   and ``SpillStats``; b) the same batches with ``algorithm="auto"``
+   (adaptive), equal to the oracle, with its arms, events and readbacks
+   logged; c) ``benchmarks/bench_adaptive.py``'s phase-change streams
+   (67,108,864 rows, both orders) through adaptive and each fixed arm,
+   each equal to the oracle, with each phase's wall; d) a phase-change
+   stream of 2^20 rows at the spill-parity ``ExecConfig`` with a governor
+   made to switch, through the card and the plain CPU path: equal
+   states, ``SpillStats`` and policy events, at least one switch, a
+   snapshot that leaves every engine tensor byte-identical, and an
+   eviction that retires the same rows on both.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -1458,17 +1471,36 @@ def check_q18(name: str, state, q18, *, hash_order: bool) -> None:
 TIMED_ARGSORT = ("traditional", "inmemory")
 
 
+def run_path(path: str, kernels, fn, n: int, by_path: dict):
+    """Run ``fn`` once with the kernels' launch counts, the host syncs and
+    the peak device memory from zero, its kernel inputs captured; fail if
+    one of ``kernels`` never launched.  Returns ``(fn's result, info)``."""
+    import torch
+
+    from repro_torch.core.types import SYNCS
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    SYNCS["host_syncs"] = 0
+    with capture(path):
+        out, wall = timed(fn)
+    launches = dict(ops.LAUNCHES)
+    by_path[path] = launches
+    require_launches(path, launches, kernels)
+    return out, dict(wall_s=wall, rows_per_s=n / wall, host_syncs=SYNCS["host_syncs"],
+                     max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
+
+
 def baselines_path(dev, rows, q18, rng, by_path: dict, main: dict) -> dict:
     """Phase 10: every baseline on SF-10 Q18 (phase 3's rows and cfg) and
     ``intersect_distinct`` of its order keys against ``orders``', each held
     to the NumPy oracle, with its kernels' launches, wall, rows/s, host
     syncs, peak device memory and ``SpillStats``."""
-    import torch
-
     import repro_torch
     from repro_torch.core import operators
-    from repro_torch.core.types import SYNCS, keys_to_numpy
-    from repro_torch.kernels import ops
+    from repro_torch.core.types import keys_to_numpy
 
     cfg = repro_torch.ExecConfig(**MAIN_CFG)
     keys, qty = rows["orderkey"], rows["quantity"]
@@ -1476,18 +1508,7 @@ def baselines_path(dev, rows, q18, rng, by_path: dict, main: dict) -> dict:
     summary = {}
 
     def run(path, kernels, fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        SYNCS["host_syncs"] = 0
-        with capture(path):
-            out, wall = timed(fn)
-        launches = dict(ops.LAUNCHES)
-        by_path[path] = launches
-        require_launches(path, launches, kernels)
-        return out, dict(wall_s=wall, rows_per_s=n / wall, host_syncs=SYNCS["host_syncs"],
-                         max_memory_allocated=torch.cuda.max_memory_allocated(),
-                         launches=launches)
+        return run_path(path, kernels, fn, n, by_path)
 
     for name, (kernels, fn) in baselines().items():
         path = f"baseline {name}"
@@ -1520,6 +1541,281 @@ def baselines_path(dev, rows, q18, rng, by_path: dict, main: dict) -> dict:
                                           host_syncs=main["host_syncs"])
     log(f"baselines side by side (SF-10 Q18, {n} rows): {json.dumps(summary)}")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the streamed path at SF 10
+# ---------------------------------------------------------------------------
+
+STREAM_BATCH_ROWS = 1 << 22  # rows of a column batch: 64 of phase 3's batches
+# tests/test_adaptive.py's crossover constants (traditional below a window
+# duplicate rate of 0.3125, early_agg above), for a governor made to switch
+CROSSOVER = {
+    "schema_version": 1,
+    "absorb_row_ns": {"traditional": 100.0, "inrun_dedup": 120.0, "early_agg": 150.0,
+                      "rs": 900.0},
+    "absorb_dup_row_ns": {"traditional": 100.0, "inrun_dedup": 120.0, "early_agg": 50.0,
+                          "rs": 900.0},
+    "sort_row_ns": 30.0, "merge_row_ns": 50.0, "hash_probe_row_ns": 80.0,
+    "spill_write_row_ns": 10.0, "meta": {"backend": "test", "generated_by": "chip_smoke"},
+}
+
+
+@contextlib.contextmanager
+def record_streams(seen: list):
+    """Note every ``StreamingAggregator`` that absorbs a chunk while the
+    block runs (the front door keeps its own), for its arms and events."""
+    from repro_torch.core import pipeline
+
+    orig = pipeline.StreamingAggregator.absorb_staged
+
+    def tap(self, staged):
+        if not any(a is self for a in seen):
+            seen.append(self)
+        return orig(self, staged)
+
+    pipeline.StreamingAggregator.absorb_staged = tap
+    try:
+        yield
+    finally:
+        pipeline.StreamingAggregator.absorb_staged = orig
+
+
+def arms_of(agg) -> list[str]:
+    """The arms a stream ran, in order."""
+    return [agg._governor.events[0]["arm"]] + [e["to"] for e in agg.policy_events]
+
+
+def kernels_of(arms) -> tuple:
+    """The aggregate kernels a stream of these arms must launch:
+    ``traditional`` sorts without combining (its merges combine)."""
+    return AGG_KERNELS if set(arms) - {"traditional"} else ("argsort", "merge_absorb")
+
+
+def check_stats(name: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise SystemExit(f"FAIL {name}: SpillStats differ\n{got}\n{want}")
+
+
+def stream_sf10(dev, rows, q18, main: dict, by_path: dict) -> dict:
+    """Phase 11 a and b: phase 3's SF-10 rows as column batches of 2^22
+    rows through ``repro_torch.aggregate``, with ``algorithm="insort"``
+    (equal to phase 3's one-shot rows, which equal the oracle exactly, and
+    to its ``SpillStats``), then ``"auto"`` (adaptive; equal to the
+    oracle)."""
+    import repro_torch
+    from repro_torch.data.pipeline import iter_column_batches
+
+    cfg = repro_torch.ExecConfig(**MAIN_CFG)
+    n = rows["orderkey"].size
+    cols = {"orderkey": rows["orderkey"], "quantity": rows["quantity"]}
+    out = {}
+    for part, alg in (("a", "insort"), ("b", "auto")):
+        path = f"stream {alg}"
+        seen: list = []
+
+        def go(alg=alg):
+            return repro_torch.aggregate(
+                iter_column_batches(cols, STREAM_BATCH_ROWS), by=repro_torch.KeySpec.of(
+                    orderkey=26), values="quantity", aggs=("count", "sum"), algorithm=alg,
+                cfg=cfg, device=dev)
+
+        with record_streams(seen):
+            res, info = run_path(path, (), go, n, by_path)
+        require_on_card(path, res)
+        agg = seen[0]
+        arms = arms_of(agg) if agg._governor is not None else [agg.policy]
+        require_launches(path, info["launches"], kernels_of(arms))
+        check_q18(path, res.state, q18, hash_order=False)
+        stats = res.stats.as_dict()
+        if alg == "insort":  # phase 3's rows equal q18 exactly (its gate)
+            check_stats(f"{path} against phase 3", stats, main["stats"])
+        else:
+            info.update(arms=arms, policy_events=agg.policy_events,
+                        governor_events=agg._governor.events[:8],
+                        readbacks_paid=res.stats.readbacks_paid,
+                        duplicate_rate=res.stats.duplicate_rate)
+        info.update(part=part, rows=n, batch_rows=STREAM_BATCH_ROWS, plan_algorithm=res.plan[
+            "algorithm"], state_capacity=res.state.capacity, stats=stats)
+        del res
+        log(f"phase 11{part}, {path} ok: {json.dumps(info)}")
+        settle(path)
+        out[path] = info
+    return out
+
+
+def phase_change_chunks(rng, M: int, chunks_per_phase: int = 32):
+    """``benchmarks/bench_adaptive.py``'s streams: a unique-heavy phase (keys
+    over 2^31) and a duplicate-heavy one (keys in [1, M/64)), chunks of M
+    rows.  The values are integer-valued (1..50), so every sum is exact."""
+    n = chunks_per_phase * M
+
+    def chunked(keys):
+        vals = rng.integers(1, 51, (n, 1)).astype(np.float32)
+        return [(keys[i:i + M], vals[i:i + M]) for i in range(0, n, M)]
+
+    return {"uniq": chunked(rng.integers(1, 2**31, size=n).astype(np.uint32)),
+            "dup": chunked(rng.integers(1, max(2, M // 64), size=n).astype(np.uint32))}
+
+
+def check_oracle(name: str, state, want) -> None:
+    keys, cnt, sums = state_relation(state)
+    uk, ucnt, usums = want
+    check_equal(f"{name} keys", keys, uk)
+    check_equal(f"{name} counts", cnt, ucnt)
+    check_equal(f"{name} sums", sums, usums)
+
+
+def feed(agg, chunks) -> None:
+    """The double-buffered protocol: stage chunk k+1, then absorb chunk k."""
+    staged = None
+    for keys, vals in chunks:
+        nxt = agg.stage(keys, vals)
+        agg.absorb_staged(staged)
+        staged = nxt
+    agg.absorb_staged(staged)
+
+
+def stream_phase_change(dev, by_path: dict) -> dict:
+    """Phase 11 c: both orders of the phase-change stream (67,108,864 rows)
+    through adaptive and each fixed arm at phase 3's ``ExecConfig``, the
+    staged double-buffered loop; each equal to the oracle, with each
+    phase's wall and the switches."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.types import ExecConfig, SYNCS
+    from repro_torch.kernels import ops
+
+    cfg = ExecConfig(**MAIN_CFG)
+    phases = phase_change_chunks(np.random.default_rng(3), cfg.memory_rows)
+    keys = np.concatenate([k for p in phases.values() for k, _ in p])
+    vals = np.concatenate([v for p in phases.values() for _, v in p])
+    want = oracle(keys, vals[:, 0])
+    n = keys.size
+    del keys, vals
+    path = "stream phase-change"
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = {}
+    with capture(path):
+        for order in ("uniq->dup", "dup->uniq"):
+            for policy in ("adaptive",) + pipeline.ADAPTIVE_ARMS:
+                SYNCS["host_syncs"] = 0
+                agg = pipeline.StreamingAggregator(cfg, policy=policy, width=1, device=dev)
+                walls = []
+                for name in order.split("->"):
+                    _, wall = timed(lambda name=name: feed(agg, phases[name]))
+                    walls.append(wall)
+                (state, stats), fin = timed(agg.finalize)
+                check_oracle(f"{path} {order} {policy}", state, want)
+                del state
+                info = dict(phase_walls_s=walls, finalize_s=fin, rows=n,
+                            rows_per_s=n / (sum(walls) + fin), host_syncs=SYNCS["host_syncs"],
+                            spill_rows=stats.total_spill_rows, runs=stats.runs_generated)
+                if policy == "adaptive":
+                    info.update(arms=arms_of(agg), policy_events=agg.policy_events,
+                                readbacks_paid=stats.readbacks_paid,
+                                duplicate_rate=stats.duplicate_rate)
+                out[f"{order} {policy}"] = info
+                log(f"phase 11c, {order} {policy} ok: {json.dumps(info)}")
+    launches = dict(ops.LAUNCHES)
+    by_path[path] = launches
+    require_launches(path, launches, AGG_KERNELS)
+    settle(path)
+    return out
+
+
+def spill_parity_stream(dev, by_path: dict) -> dict:
+    """Phase 11 d: a uniq->dup stream of 2^20 rows at the spill-parity
+    ``ExecConfig``, adaptive with a governor made to switch (start
+    ``traditional``, the crossover constants), through the card and the
+    plain CPU path: equal states, ``SpillStats`` (the observation block
+    included) and policy events, at least one switch.  On the card a
+    snapshot at the middle chunk leaves every engine tensor byte-identical;
+    both devices evict the keys below 2^30 at three quarters and must
+    retire the same rows."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.adaptive import GovernorConfig, PolicyGovernor
+    from repro_torch.core.types import ExecConfig, state_to_numpy
+    from repro_torch.kernels import ops
+
+    cfg = ExecConfig(**SPILL_CFG)
+    phases = phase_change_chunks(np.random.default_rng(4), cfg.memory_rows)
+    chunks = phases["uniq"] + phases["dup"]
+    n = sum(k.size for k, _ in chunks)
+    path = "stream spill parity"
+    got = {}
+    for d in (dev, "cpu"):
+        gov = PolicyGovernor(cfg, config=GovernorConfig(
+            constants=CROSSOVER, start="traditional", hysteresis=0.05, min_window_rows=64))
+        agg = pipeline.StreamingAggregator(cfg, policy="adaptive", width=1, governor=gov,
+                                           device=d)
+        if d == dev:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        retired = None
+        with capture(path) if d == dev else contextlib.nullcontext():
+            for i, (k, v) in enumerate(chunks):
+                agg.absorb(k, v)
+                if i == len(chunks) // 2 and d == dev:
+                    snapshot_unchanged(agg, chunks[:i + 1])
+                if i == 3 * len(chunks) // 4:
+                    retired = agg.evict_below(1 << 30)
+            state, stats = agg.finalize()
+        got[str(d)] = (state_to_numpy(state), stats.as_dict(), agg.policy_events, retired,
+                       time.perf_counter() - t0)
+        if d == dev:
+            launches = dict(ops.LAUNCHES)
+            by_path[path] = launches
+            require_launches(path, launches, AGG_KERNELS)
+    (sa, da, ea, ra, ta), (sb, db, eb, rb, tb) = got[str(dev)], got["cpu"]
+    for f in sa:
+        check_equal(f"{path} {f}", sa[f], sb[f])
+    check_stats(path, da, db)
+    if ea != eb or ra != rb:
+        raise SystemExit(f"FAIL {path}: policy events or retired rows differ\n{ea} {ra}\n{eb} {rb}")
+    if da["policy_switches"] < 1 or da["rows_retired"] != ra or ra <= 0:
+        raise SystemExit(f"FAIL {path}: no switch or no eviction: {da}")
+    info = dict(rows=n, stats=da, policy_events=ea, retired=ra, card_s=ta, cpu_s=tb)
+    log(f"phase 11d, {path} ok: {json.dumps(info)}")
+    settle(path)
+    return info
+
+
+def snapshot_unchanged(agg, absorbed) -> None:
+    """A snapshot of the live engine: every engine tensor byte-identical
+    before and after, and the snapshot equal to the oracle of what was
+    absorbed."""
+    import torch
+
+    es = agg._es
+    tensors = [getattr(s, f) for s in (es.table, es.table2, es.store)
+               for f in ("keys", "count", "sum", "min", "max")] + [es.frontier]
+    before = [t.clone() for t in tensors]
+    host = (list(es.lens), es.cursor, es.ridx, es.spilled, es.absorbed, es.dups, es.resident)
+    state, _ = agg.snapshot()
+    same = [torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+            for a, b in zip(before, tensors)]
+    if not all(same) or host != (list(es.lens), es.cursor, es.ridx, es.spilled, es.absorbed,
+                                 es.dups, es.resident):
+        raise SystemExit("FAIL stream snapshot: the engine changed")
+    keys = np.concatenate([k for k, _ in absorbed])
+    vals = np.concatenate([v for _, v in absorbed])
+    check_oracle("stream snapshot", state, oracle(keys, vals[:, 0]))
+    log(f"phase 11d: the snapshot after {keys.size} rows left {len(tensors)} engine tensors "
+        "byte-identical")
+
+
+def stream_path(dev, rows, q18, main: dict, by_path: dict) -> dict:
+    """Phase 11: the streamed path (parts a–d)."""
+    out = stream_sf10(dev, rows, q18, main, by_path)
+    out["phase change"] = stream_phase_change(dev, by_path)
+    out["spill parity"] = spill_parity_stream(dev, by_path)
+    return out
 
 
 def kernel_records(by_path: dict) -> list[dict]:
@@ -1604,6 +1900,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     baselines_path(dev, rows, q18, rng, by_path, main)
+    stream_path(dev, rows, q18, main, by_path)
     kernels = kernel_records(by_path)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

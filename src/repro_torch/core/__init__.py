@@ -1,8 +1,10 @@
 """The port's engine (counterpart of :mod:`repro.core`): types, backend
-registry, the plain reference engine, run generation, the traditional and
-wide merges, the device pipeline, the paper's operator and its baselines
-(hash, F1-hash, sort-then-stream, in-stream), the operators built on them,
-the cost model and the front door.
+registry, the plain reference engine and its typed layer
+(``OrderedIndex``), run generation, the traditional and wide merges, the
+device pipeline one-shot and streamed, the adaptive policy governor, the
+paper's operator and its baselines (hash, F1-hash, sort-then-stream,
+in-stream), the operators built on them, the cost model and the front
+door.
 """
 from repro_torch.core import cost_model
 from repro_torch.core.dispatch import Backend, get_backend, registered_backends
@@ -19,7 +21,7 @@ from repro_torch.core.operators import (
     rollup,
     unpack_keys,
 )
-from repro_torch.core.ordered_index import merge_ranks
+from repro_torch.core.ordered_index import OrderedIndex, merge_ranks
 from repro_torch.core.pipeline import (
     aggregate_device,
     generate_runs_device,
@@ -43,12 +45,14 @@ from repro_torch.core.types import (
     SpillStats,
     empty_key,
     key_dtype_for_bits,
+    max_key,
 )
 
 __all__ = [
     "AggState", "DeviceSpillStats", "ExecConfig", "SpillStats", "empty_key",
-    "key_dtype_for_bits", "AggResult", "AggSpec", "KeyColumn", "KeySpec", "aggregate",
-    "Backend", "get_backend", "registered_backends", "merge_ranks", "sorted_groupby",
+    "key_dtype_for_bits", "max_key", "AggResult", "AggSpec", "KeyColumn", "KeySpec",
+    "aggregate", "Backend", "get_backend", "registered_backends", "OrderedIndex",
+    "merge_ranks", "sorted_groupby",
     "finalize", "sort_state", "segmented_combine", "interleave", "interleave_many",
     "merge_absorb", "merge_absorb_many", "insort_aggregate", "aggregate_device",
     "generate_runs_device", "insort_aggregate_device", "sort_then_stream_aggregate",

@@ -73,12 +73,24 @@ def group_by(keys, payload=None, cfg: ExecConfig | None = None, *, algorithm: st
     ``"sort_then_stream"`` or ``"inmemory"`` (no budget).  Keys are
     ``uint32`` or ``uint64`` host arrays.  The in-sort operator runs the
     device pipeline by default; ``pipeline="host"`` the reference loop.
-    Streamed input and ``mesh`` are not ported (ROADMAP Queue 1 items 9
-    and 11)."""
+
+    ``keys`` may instead be an iterator of chunks — key arrays, or
+    ``(keys, payload)`` pairs — absorbed through the streamed pipeline
+    (in-sort on the device pipeline only; pass ``payload=None``).  ``mesh``
+    is not ported (ROADMAP Queue 1 item 11)."""
     cfg = cfg or ExecConfig()
     if isinstance(keys, Iterator):
-        raise NotImplementedError(
-            "streamed input is not ported yet (ROADMAP Queue 1 item 9, streaming and adaptive)")
+        if algorithm not in ("auto", "insort") or pipeline != "device":
+            raise ValueError("streamed input runs the in-sort device pipeline only "
+                             f"(got algorithm={algorithm!r}, pipeline={pipeline!r})")
+        if payload is not None:
+            raise ValueError("with streamed input, pass payload chunks as (keys, payload) "
+                             "pairs in the iterator, not payload=")
+        from repro_torch.core import pipeline as pipeline_mod
+
+        return pipeline_mod.insort_aggregate_device_stream(
+            keys, cfg, backend=backend, widths=widths, output_estimate=output_estimate,
+            mesh=mesh, mesh_axis=mesh_axis, device=device)
     if algorithm in ("auto", "insort"):
         return insort_mod.insort_aggregate(
             keys, payload, cfg, output_estimate=output_estimate, backend=backend,

@@ -7,12 +7,19 @@ keys.  These functions are the plain versions the ``"torch"`` backend
 runs and the CUDA kernels of :mod:`repro_torch.kernels` are held against.
 The reference's no-scatter rule was a TPU concern: here the combine uses
 ``cumsum`` group ids with ``index_add_``/``scatter_reduce_``.
+
+:class:`OrderedIndex` is the typed engine layer over any backend of the
+registry.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from repro_torch.core.types import AggState, concat_states, empty_like
+from repro_torch.core import dispatch
+from repro_torch.core.types import AggState, concat_states, empty_like, empty_state, take
 
 _INF = float("inf")
 
@@ -160,3 +167,65 @@ def merge_absorb_torch(a: AggState, b: AggState, *, assume_unique: bool = False)
     if assume_unique:
         return pair_combine_torch(merged)
     return segmented_combine_torch(merged)
+
+
+# ---------------------------------------------------------------------------
+# the typed engine layer
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class OrderedIndex:
+    """A fixed-capacity state carrying the engine's invariant in its type:
+    keys ascending, valid keys duplicate-free, an EMPTY-padded suffix.
+
+    ``from_unsorted`` establishes the invariant (the only full argsort);
+    ``empty``, ``merge_absorb`` and ``trim`` preserve it; ``wrap`` trusts a
+    caller that keeps it.  The operations run on the backend of the
+    registry (:mod:`repro_torch.core.dispatch`), by default the one of the
+    state's device."""
+
+    state: AggState
+
+    @property
+    def capacity(self) -> int:
+        return self.state.capacity
+
+    @property
+    def width(self) -> int:
+        return self.state.width
+
+    @property
+    def keys(self) -> torch.Tensor:
+        return self.state.keys
+
+    def occupancy(self) -> torch.Tensor:
+        return self.state.occupancy()
+
+    @classmethod
+    def empty(cls, capacity: int, width: int, *, key_dtype=np.uint32,
+              device="cuda") -> "OrderedIndex":
+        return cls(empty_state(capacity, width, key_dtype=key_dtype, device=device))
+
+    @classmethod
+    def wrap(cls, state: AggState) -> "OrderedIndex":
+        """Trust the caller that ``state`` already satisfies the invariant."""
+        return cls(state)
+
+    @classmethod
+    def from_unsorted(cls, state: AggState, *, backend: str = "auto") -> "OrderedIndex":
+        """Canonicalize arbitrary rows: full argsort + combine."""
+        be = dispatch.get_backend(backend, state.device)
+        return cls(be.segmented_combine(take(state, be.argsort(state.keys))))
+
+    def merge_absorb(self, other: "OrderedIndex", *, backend: str = "auto") -> "OrderedIndex":
+        """Batched insert (§3.4): a linear merge, never a full sort, into
+        capacity ``self.capacity + other.capacity``.  Both sides are
+        duplicate-free, so the absorb is a pair-combine."""
+        be = dispatch.get_backend(backend, self.state.device)
+        return OrderedIndex(be.merge_sorted(self.state, other.state, assume_unique=True))
+
+    def trim(self, capacity: int) -> "OrderedIndex":
+        """Keep the first ``capacity`` rows (the smallest keys); callers
+        check that the occupancy fits first."""
+        return OrderedIndex(self.state.map(lambda x: x[:capacity]))

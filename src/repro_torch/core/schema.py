@@ -10,11 +10,14 @@ operators that consume its key order: :meth:`AggResult.merge_join`
 from the reference, so the port imports nothing of it.  One-shot input
 runs every algorithm of the reference (the in-sort operator on the device
 pipeline or the host loop, the hash, F1-hash, sort-then-stream and
-in-memory baselines); streamed input and the mesh wait in ROADMAP.
+in-memory baselines); streamed input (an iterator of column batches) runs
+the in-sort operator on the streamed pipeline, fixed-policy or adaptive.
+The mesh waits in ROADMAP.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from collections.abc import Iterator
 from typing import Any, Mapping, Sequence
 
@@ -31,6 +34,7 @@ from repro_torch.core.types import (
     host_ints,
     key_dtype_for_bits,
     keys_to_numpy,
+    max_key,
     resolve_device,
     zero_key,
 )
@@ -113,6 +117,10 @@ class KeySpec:
     @property
     def empty(self) -> np.unsignedinteger:
         return _EMPTY_NP[self.key_dtype]
+
+    @property
+    def max_packed(self) -> np.unsignedinteger:
+        return max_key(self.key_dtype)
 
     def shift_of(self, name: str) -> int:
         """Bit position of a column's least-significant bit in the packed key."""
@@ -611,19 +619,33 @@ def aggregate(columns, *, by: KeySpec, values=None,
     ``input_sorted`` asserts the input arrives in key order; the plan's
     cost surface then credits a zero sort term.  ``device`` defaults to
     ``"cuda"`` and raises where there is no card; ``device="cpu"`` runs
-    the plain versions."""
+    the plain versions.
+
+    **Streamed input**: ``columns`` may instead be an iterator of
+    column-batch mappings (:func:`repro_torch.data.pipeline.
+    iter_column_batches`); the engine absorbs them batch by batch through
+    the streamed pipeline (:func:`repro_torch.core.pipeline.
+    aggregate_device_stream`), so the input is never resident at once.
+    ``values`` then names a float column carried in each batch, and the
+    algorithm is the in-sort operator on the device pipeline: ``"insort"``
+    (replacement selection), ``"adaptive"`` (the run-generation policy
+    re-decided mid-stream by :mod:`repro_torch.core.adaptive`), or
+    ``"auto"``, which is ``"adaptive"`` where ``memory_rows`` is a multiple
+    of ``batch_rows``."""
     from repro_torch.core.operators import ALGORITHMS, group_by  # imports this module
 
     cfg = cfg or ExecConfig()
     if not isinstance(aggs, AggSpec):
         aggs = AggSpec(aggs) if isinstance(aggs, str) else AggSpec(*aggs)
     if isinstance(columns, Iterator):
-        raise NotImplementedError(
-            "streamed input is not ported yet (ROADMAP Queue 1 item 9, streaming and adaptive)")
+        return _aggregate_stream(columns, by=by, values=values, aggs=aggs, order_by=order_by,
+                                 algorithm=algorithm, backend=backend, cfg=cfg,
+                                 output_estimate=output_estimate, input_sorted=input_sorted,
+                                 pipeline=pipeline, device=device)
     if algorithm == "adaptive":
         raise ValueError(
-            "algorithm='adaptive' adapts mid-stream: it needs streamed input (not ported "
-            "yet, ROADMAP Queue 1 item 9); one-shot input is planned up front with "
+            "algorithm='adaptive' adapts mid-stream — it needs streamed input (pass an "
+            "iterator of column batches); one-shot input is planned up front with "
             "algorithm='auto'")
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}; expected one of {ALGORITHMS}")
@@ -655,6 +677,88 @@ def aggregate(columns, *, by: KeySpec, values=None,
         # hash order → key order: the sort the paper's operator never pays (Fig 19)
         state = sorted_ops.sort_state(state, backend=backend)
     return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan)
+
+
+def _aggregate_stream(batches, *, by: KeySpec, values, aggs: AggSpec, order_by,
+                      algorithm: str, backend: str, cfg: ExecConfig,
+                      output_estimate: int | None, input_sorted: bool, pipeline: str,
+                      device) -> AggResult:
+    """:func:`aggregate` over an iterator of column-batch mappings.  Each
+    batch carries the key columns of ``by`` and, where ``values`` names
+    one, a float column; batches are packed on the host one at a time and
+    fed to the double-buffered streamed pipeline."""
+    from repro_torch.core import pipeline as pipeline_mod
+
+    if algorithm not in ("auto", "insort", "adaptive"):
+        raise ValueError(
+            f"streamed input runs the in-sort device pipeline only, got algorithm={algorithm!r}")
+    adaptive_ok = cfg.memory_rows % cfg.batch_rows == 0
+    if algorithm == "adaptive" and not adaptive_ok:
+        raise ValueError(
+            "algorithm='adaptive' needs a single-device stream with memory_rows divisible by "
+            f"batch_rows, got mesh=None, memory_rows={cfg.memory_rows}, "
+            f"batch_rows={cfg.batch_rows}")
+    adaptive = algorithm == "adaptive" or (algorithm == "auto" and adaptive_ok)
+    policy = "adaptive" if adaptive else "rs"
+    if pipeline != "device":
+        raise ValueError(f"streamed input requires pipeline='device', got {pipeline!r}")
+    if values is not None and not isinstance(values, str):
+        raise TypeError("with streamed input, values must name a column carried in each batch "
+                        f"mapping (a str), got {type(values).__name__}")
+    _resolve_order_by(order_by, by)  # sort-based: always satisfiable
+    dev = resolve_device(device)
+    backend = dispatch.resolve_backend_name(backend, dev)
+    rows_seen = 0
+
+    def prep(batch):
+        nonlocal rows_seen
+        packed = by.pack(batch)
+        rows_seen += len(packed)
+        if values is None:
+            return packed, None
+        if values not in batch:
+            raise KeyError(f"values column {values!r} missing from batch")
+        vals = np.asarray(batch[values], dtype=np.float32)
+        if vals.ndim == 1:
+            vals = vals[:, None]
+        if len(vals) != len(packed):
+            raise ValueError(f"values column {values!r} has {len(vals)} rows, key columns "
+                             f"have {len(packed)}")
+        return packed, vals
+
+    def plan_of(stats):
+        plan = _plan(rows_seen, cfg, output_estimate, input_sorted=input_sorted,
+                     device_type=dev.type)
+        plan.update(algorithm="adaptive" if adaptive else "insort", policy=policy,
+                    pipeline="device", backend=backend, streamed=True, device=str(dev))
+        if adaptive and stats is not None:
+            plan["policy_switches"] = stats.policy_switches
+            plan["readbacks_paid"] = stats.readbacks_paid
+        return plan
+
+    it = iter(batches)
+    first = next(it, None)
+    kw = dict(policy=policy, backend=backend, key_dtype=by.key_dtype,
+              output_estimate=output_estimate, device=dev)
+    if first is None:
+        state, stats = pipeline_mod.insort_aggregate_device_stream(
+            iter(()), cfg, widths=(0, 0, 0), width=0, **kw)
+        return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan_of(None))
+    first_prepped = prep(first)
+    V = 0 if first_prepped[1] is None else first_prepped[1].shape[1]
+    widths = aggs.plane_widths(V)
+    if values is not None and not any(widths):
+        # nothing requested needs the payload: drop the value column
+        values = None
+        rows_seen = 0
+        first_prepped = prep(first)
+        V, widths = 0, (0, 0, 0)
+    elif values is None and aggs.needs_payload():
+        raise ValueError(f"aggregates {aggs.names} need a payload; pass values=<column name>")
+    chunks = itertools.chain([first_prepped], (prep(b) for b in it))
+    state, stats = pipeline_mod.insort_aggregate_device_stream(chunks, cfg, widths=widths,
+                                                               width=V, **kw)
+    return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan_of(stats))
 
 
 # ---------------------------------------------------------------------------

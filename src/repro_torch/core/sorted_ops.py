@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import dispatch
 from repro_torch.core import ordered_index as oi
+from repro_torch.core.ordered_index import OrderedIndex  # noqa: F401  (re-export)
 from repro_torch.core.types import AggState, rows_to_state, take
 
 

@@ -42,6 +42,12 @@ def host_ints(*scalars: torch.Tensor) -> list[int]:
     return torch.stack([s.to(torch.int64).reshape(()) for s in scalars]).tolist()
 
 
+def host_list(vector: torch.Tensor) -> list[int]:
+    """Read a device vector back in one transfer, counted in ``SYNCS``."""
+    SYNCS["host_syncs"] += 1
+    return vector.to(torch.int64).tolist()
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``cuda`` without a card raises:
     the port never moves to the CPU unless the caller asks for it."""
@@ -64,6 +70,13 @@ def _key_dtype(key_dtype) -> np.dtype:
 def empty_key(key_dtype) -> int:
     """The int64 value of the EMPTY sentinel in a key domain."""
     return 0xFFFFFFFF if _key_dtype(key_dtype) == np.uint32 else INT64_MAX
+
+
+def max_key(key_dtype) -> np.unsignedinteger:
+    """The largest valid key of a domain, in the user's unsigned dtype (one
+    below EMPTY, the reserved all-ones pattern)."""
+    kd = _key_dtype(key_dtype)
+    return kd.type(np.iinfo(kd).max - 1)
 
 
 def zero_key(key_dtype) -> int:
@@ -263,14 +276,21 @@ class StreamEngineState:
     """The carry of the run-generation loop (counterpart of
     :class:`repro.core.types.StreamEngineState`).
 
-    ``table``/``table2`` are replacement selection's open and next-run
-    partitions, ``frontier`` the eviction frontier (a device scalar),
-    ``store`` the stacked run buffer (leading dims ``(R, C)``).  The run
-    bookkeeping (``lens``, ``cursor``, ``ridx``, ``spilled``) lives on the
-    host: the eviction loop reads the table occupancies back on every trip
-    anyway, and every other counter follows from them.  The reference's
-    observation block (``absorbed``, ``dups``) serves its adaptive
-    streaming mode and comes with the streaming port."""
+    ``table``/``table2`` are early aggregation's index or replacement
+    selection's open and next-run partitions, ``frontier`` the eviction
+    frontier (a device scalar), ``store`` the stacked run buffer (leading
+    dims ``(R, C)``).  Everything else lives on the host: the eviction loop
+    reads the table occupancies back on every trip anyway, and every
+    counter follows from those readbacks.
+
+    ``lens``/``cursor``/``ridx``/``spilled`` are the run bookkeeping.
+    ``absorbed`` and ``dups`` are the observation block the adaptive
+    streaming mode steers on: valid input rows consumed, and duplicate-key
+    encounters (rows that combined into an existing group, or adjacent
+    equal keys of a sorted batch under ``traditional``).  ``resident`` is
+    the tables' occupancy after the last step, which the steps read back
+    anyway; it gives the absorbing steps their occupancy before a batch and
+    the governor its table rows without another readback."""
 
     table: AggState
     table2: AggState
@@ -280,6 +300,9 @@ class StreamEngineState:
     cursor: int
     ridx: int
     spilled: int
+    absorbed: int = 0
+    dups: int = 0
+    resident: int = 0
 
     @property
     def run_slots(self) -> int:
@@ -288,6 +311,28 @@ class StreamEngineState:
     @property
     def slot_rows(self) -> int:
         return self.store.keys.shape[-1]
+
+    @property
+    def key_dtype(self) -> np.dtype:
+        return self.store.key_dtype
+
+
+@dataclasses.dataclass
+class StagedChunk:
+    """One chunk of a stream on its way to the engine (counterpart of
+    :class:`repro.core.pipeline.StagedChunk`): the unit of double
+    buffering.  ``keys`` (int64) and ``payload`` ((rows, V) float32) are
+    EMPTY-padded to whole staging units; on a card they were copied on a
+    side stream, and ``event`` marks the copy's end (None on the CPU).
+    ``rows`` counts the valid input rows, ``rows_padded`` the rows of the
+    chunk's pow2-bucketed batch geometry, by which the run slots are
+    sized."""
+
+    keys: torch.Tensor
+    payload: torch.Tensor
+    rows: int
+    rows_padded: int
+    event: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -364,7 +409,21 @@ class SpillStats:
 
 class MergeOverflowError(RuntimeError):
     """The wide merge dropped rows: its index outgrew its capacity or the
-    output overran its buffer."""
+    output overran its buffer.  The streaming finalize and snapshot catch
+    this type to retry once at the next pow2 output capacity."""
+
+
+class ExchangeOverflowError(RuntimeError):
+    """The cross-shard exchange's per-peer send quota was too small for a
+    send segment: rows would have stayed behind on the sending shard.
+    Carries the ``quota`` the exchange ran at and the fullest segment's
+    ``max_fill`` so that a retry can size itself.  Raised by the mesh
+    paths (ROADMAP Queue 1 item 11)."""
+
+    def __init__(self, message: str, *, quota: int, max_fill: int):
+        super().__init__(message)
+        self.quota = quota
+        self.max_fill = max_fill
 
 
 @dataclasses.dataclass(frozen=True)
@@ -384,6 +443,7 @@ class DeviceSpillStats:
     max_index_occupancy: Any
     run_buffer_overflowed: Any
     merge_dropped_rows: Any
+    rows_retired: Any = 0
 
     @classmethod
     def zeros(cls) -> "DeviceSpillStats":
@@ -401,12 +461,17 @@ class DeviceSpillStats:
                 "the slot bound — please report input sizes and ExecConfig)"
             )
         if vals["merge_dropped_rows"]:
+            if entry_point == "snapshot":
+                hint = ("raise output_rows (the snapshot output capacity) or pass a "
+                        "larger output_estimate (more pre-merge levels)")
+            else:
+                hint = ("pass a larger output_estimate (more pre-merge levels) or "
+                        "raise index_rows")
             raise MergeOverflowError(
                 f"the wide merge during {entry_point} dropped rows: either its "
                 f"index overflowed its capacity (max resident "
                 f"{int(vals['max_index_occupancy'])} rows) or the output overran "
-                "its buffer — pass a larger output_estimate (more pre-merge "
-                "levels) or raise index_rows"
+                f"its buffer — {hint}"
             )
         return SpillStats(
             rows_spilled_run_generation=int(vals["rows_spilled_run_generation"]),
@@ -418,4 +483,5 @@ class DeviceSpillStats:
             rows_emitted=int(vals["rows_emitted"]),
             index_overflowed=bool(vals["index_overflowed"]),
             max_index_occupancy=int(vals["max_index_occupancy"]),
+            rows_retired=int(vals["rows_retired"]),
         )

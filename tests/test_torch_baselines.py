@@ -68,6 +68,18 @@ FIG2 = {  # (early_aggregation, use_wide_merge, run_policy)
 U32, U64 = np.dtype(np.uint32), np.dtype(np.uint64)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's CPU paths run thousands of small ops; with PyTorch's
+    intra-op pool on a loaded host each op can wait milliseconds for its
+    threads, so the port's CPU tests run on one thread (restored
+    afterwards).  The other test_torch_* modules import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # the cases: name -> parameters
 # ---------------------------------------------------------------------------

@@ -249,6 +249,93 @@ def test_baseline_on_the_card_matches_cpu(dev, name, key_dtype):
         np.testing.assert_array_equal(a[f], b[f], err_msg=f)
 
 
+# tests/test_adaptive.py's crossover constants: traditional below a window
+# duplicate rate of 0.3125, early_agg above
+CROSSOVER = {
+    "schema_version": 1,
+    "absorb_row_ns": {"traditional": 100.0, "inrun_dedup": 120.0, "early_agg": 150.0,
+                      "rs": 900.0},
+    "absorb_dup_row_ns": {"traditional": 100.0, "inrun_dedup": 120.0, "early_agg": 50.0,
+                          "rs": 900.0},
+    "sort_row_ns": 30.0, "merge_row_ns": 50.0, "hash_probe_row_ns": 80.0,
+    "spill_write_row_ns": 10.0, "meta": {"backend": "test", "generated_by": "tests"},
+}
+
+
+def _phase_change(key_dtype, n=24_576):
+    """A unique-heavy half and a duplicate-heavy half; integer payloads."""
+    keys = np.concatenate([RNG.integers(1, 2**31, n // 2), RNG.integers(1, 24, n // 2)])
+    keys = keys.astype(np.uint64) * np.uint64(3) if key_dtype == np.uint64 else keys
+    return keys.astype(key_dtype), RNG.integers(0, 50, (n, 1)).astype(np.float32)
+
+
+def _stream_on(d, policy, keys, pay, *, snapshot_at=None, evict_at=None):
+    """One stream in chunks of 1,024 rows on device ``d``: (state arrays,
+    stats, policy events, rows retired)."""
+    from repro_torch.core.adaptive import GovernorConfig
+
+    cfg = ExecConfig(memory_rows=512, batch_rows=128, page_rows=64, fanin=4)
+    gov = (GovernorConfig(constants=CROSSOVER, start="traditional", hysteresis=0.05,
+                          min_window_rows=64) if policy == "adaptive" else None)
+    agg = pipeline.StreamingAggregator(cfg, policy=policy, key_dtype=keys.dtype, width=1,
+                                       governor=gov, device=d)
+    retired = None
+    for i in range(0, keys.size, 1024):
+        agg.absorb(keys[i:i + 1024], pay[i:i + 1024])
+        if i == snapshot_at:
+            es = agg._es
+            tensors = [getattr(s, f) for s in (es.table, es.table2, es.store)
+                       for f in ("keys", "count", "sum", "min", "max")] + [es.frontier]
+            before = [t.clone() for t in tensors]
+            agg.snapshot()
+            assert all(torch.equal(a, b) for a, b in zip(before, tensors))
+        if i == evict_at:
+            retired = agg.evict_below(int(np.sort(keys)[keys.size // 4]))
+    state, stats = agg.finalize()
+    return state_to_numpy(state), stats.as_dict(), agg.policy_events, retired
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("policy", ["rs", "early_agg", "traditional", "adaptive"])
+def test_stream_on_the_card_matches_cpu(dev, policy, key_dtype):
+    """A stream on the card (a snapshot in the middle that leaves every
+    engine tensor equal, an eviction at three quarters) equals its plain CPU
+    run: the state, ``SpillStats`` with the observation block, the policy
+    events (an adaptive stream switches), the rows retired; the aggregate
+    kernels launched."""
+    keys, pay = _phase_change(key_dtype)
+    ops.reset_launch_counts()
+    got = _stream_on(dev, policy, keys, pay, snapshot_at=12_288, evict_at=18_432)
+    assert ops.LAUNCHES["argsort"] > 0 and ops.LAUNCHES["merge_absorb"] > 0
+    want = _stream_on("cpu", policy, keys, pay, evict_at=18_432)
+    for f in got[0]:
+        np.testing.assert_array_equal(got[0][f], want[0][f], err_msg=f)
+    assert got[1:] == want[1:]
+    assert got[3] > 0 and got[1]["rows_retired"] == got[3]
+    if policy == "adaptive":
+        assert got[1]["policy_switches"] >= 1 and got[2][0]["to"] == "early_agg"
+
+
+def test_streamed_front_door_on_the_card_matches_cpu(dev):
+    """Column batches through ``repro_torch.aggregate``, ``insort`` and
+    ``auto`` (adaptive), on the card and on the CPU."""
+    from repro_torch.data.pipeline import iter_column_batches
+
+    cols = {"k": RNG.integers(0, 3000, 20_000).astype(np.uint32),
+            "x": RNG.integers(0, 50, 20_000).astype(np.float32)}
+    cfg = ExecConfig(memory_rows=512, batch_rows=128, page_rows=64, fanin=4)
+    for alg in ("insort", "auto"):
+        res = [repro_torch.aggregate(iter_column_batches(cols, 3000),
+                                     by=repro_torch.KeySpec.of(k=12), values="x",
+                                     aggs=("count", "sum"), algorithm=alg, cfg=cfg, device=d)
+               for d in (dev, "cpu")]
+        assert res[0].state.device.type == "cuda" and res[0].plan["streamed"]
+        assert res[0].stats.as_dict() == res[1].stats.as_dict()
+        a, b = res[0].relation(), res[1].relation()
+        for c in a:
+            np.testing.assert_array_equal(a[c], b[c], err_msg=c)
+
+
 @pytest.mark.parametrize("n,chunk,domain", [(20_000, 1024, 3000), (5000, 300, 1), (1, 16, 5),
                                             (0, 16, 5)])
 def test_instream_on_the_card_matches_cpu(dev, n, chunk, domain):

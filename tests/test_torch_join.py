@@ -53,6 +53,7 @@ from repro_torch.core.types import (
     state_to_numpy,
 )
 from repro_torch.kernels import merge_path, ops
+from test_torch_baselines import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 _JIT_COMBINE = jax.jit(joi.segmented_combine_xla)
 CFG = dict(memory_rows=256, page_rows=32, fanin=4, batch_rows=64)

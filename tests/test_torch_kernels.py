@@ -19,6 +19,7 @@ from repro.core import sorted_ops as jso
 from repro.core.types import key_dtype_context, rows_to_state as j_rows_to_state
 from repro_torch.core.types import FIELDS, AggState, state_from_numpy, state_to_numpy
 from repro_torch.kernels import bitonic_sort, grouped_matmul, ops
+from test_torch_baselines import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 RNG = np.random.default_rng(11)
 

@@ -52,6 +52,7 @@ from repro_torch.launch.serve import generate
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
+from test_torch_baselines import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 ARCH = "qwen3-moe-30b-a3b"
 RNG = np.random.default_rng(13)

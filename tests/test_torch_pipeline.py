@@ -5,7 +5,10 @@ policy, ``"xla"`` backend) and the port's counterpart on the CPU: keys,
 counts and ``SpillStats.as_dict()`` must be equal, sums agree within rtol
 1e-4.  Covered: u32 spilling through pre-merge levels, u64 spilling with
 keys in both halves of the u64 domain (the mapped frontier zero), and the
-in-memory case N <= M.
+in-memory case N <= M.  The reference's results are stored in
+``tests/data/torch_stream_reference.npz`` (``STORED_CASES``, written by
+``scripts/make_torch_stream_reference.py``); ``LIVE`` is recomputed live
+and must equal its stored result too.
 """
 import jax
 import jax.experimental
@@ -28,6 +31,8 @@ from repro_torch.core.types import (
     rows_to_state,
     state_to_numpy,
 )
+from test_torch_baselines import one_torch_thread  # noqa: F401  (an autouse fixture)
+from test_torch_stream import stored
 
 CFG = dict(memory_rows=256, page_rows=32, fanin=4, batch_rows=64)
 CASES = {
@@ -36,7 +41,8 @@ CASES = {
     "u64_spill": (4000, np.uint64, 1200, None),
     "u32_in_memory": (200, np.uint32, 150, None),
 }
-_REFERENCE: dict = {}
+STORED_CASES = tuple(f"pipeline-{name}" for name in CASES)
+LIVE = "u32_in_memory"
 
 
 @pytest.fixture(autouse=True)
@@ -60,15 +66,25 @@ def _inputs(name):
     return keys, pay, est
 
 
+def compute(case: str, *, ref: bool = True) -> dict:
+    """The JAX pipeline's result of stored case ``pipeline-<name>``."""
+    keys, pay, est = _inputs(case.removeprefix("pipeline-"))
+    state, stats = jpipe.insort_aggregate_device(
+        keys, pay, JExecConfig(**CFG), policy="rs", backend="xla", output_estimate=est)
+    return dict(state=state, stats=stats.as_dict())
+
+
 def _reference(name):
-    """The JAX pipeline's result (computed once per case)."""
-    if name not in _REFERENCE:
-        keys, pay, est = _inputs(name)
-        state, stats = jpipe.insort_aggregate_device(
-            keys, pay, JExecConfig(**CFG), policy="rs", backend="xla", output_estimate=est)
-        _REFERENCE[name] = ({f: np.asarray(getattr(state, f)) for f in
-                             ("keys", "count", "sum", "min", "max")}, stats.as_dict())
-    return _REFERENCE[name]
+    """The JAX pipeline's result: stored, or live for ``LIVE`` (which must
+    equal its stored result)."""
+    want = stored(f"pipeline-{name}")
+    if name == LIVE:
+        live = compute(f"pipeline-{name}")
+        for f, arr in want["state"].items():
+            np.testing.assert_allclose(np.asarray(getattr(live["state"], f)), arr, rtol=1e-4,
+                                       atol=1e-5, err_msg=f)
+        assert live["stats"] == want["stats"]
+    return want["state"], want["stats"]
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
