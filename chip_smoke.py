@@ -87,7 +87,22 @@ with a non-zero exit):
    made to switch, through the card and the plain CPU path: equal
    states, ``SpillStats`` and policy events, at least one switch, a
    snapshot that leaves every engine tensor byte-identical, and an
-   eviction that retires the same rows on both.
+   eviction that retires the same rows on both;
+12. aggregation as a service: a) phase 11a's column batches through
+   ``repro_torch.serve_aggregate`` (``rs``), snapshots after batches 5 and
+   10 equal to the oracle of their prefix and leaving every engine tensor
+   byte-identical, ``expire_below`` at the prefix's 25th-percentile order
+   key retiring as many rows as NumPy counts in the engine below it, the
+   close equal to the oracle of the rows not retired; b)
+   ``launch/serve_agg.py``'s drifting traffic (64 chunks of 2^20 rows, key
+   space 2^20) through ``AggregationService`` with ``rs`` and with
+   ``adaptive`` under the card's committed constants, a snapshot every 8
+   chunks after a TTL-2 eviction, with ingest rows/s, snapshot p50/p99,
+   host syncs, arms and the plan's ``calibrated_backend`` (which must read
+   ``cuda``), the close equal to the oracle of the rows not retired (normal
+   payloads: sums within 2 n 2^-24 sum|x|, and the kernels within the same
+   bound of their plain versions); c) ``python -m
+   repro_torch.launch.serve_agg --smoke``.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -280,11 +295,13 @@ def make_state(rng, n, key_dtype, domain, empty_frac, widths, *, sort=True, dedu
     return st
 
 
-def state_diff(name: str, a, b) -> float:
+def state_diff(name: str, a, b, sum_tol=None) -> float:
     """Raise unless keys and counts are equal; the max |difference| of the
-    float planes, which must be 0: on every input the script holds a
-    kernel to, the payloads are integer-valued with sums below 2^24 or
-    one value per key, so any order of addition is exact."""
+    float planes.  Without ``sum_tol`` it must be 0: the payloads are
+    integer-valued with sums below 2^24 or one value per key, so any order
+    of addition is exact.  With it (phase 12b's normal payloads), the min
+    and max planes must be equal and each row's sum within its
+    ``sum_tol``."""
     import torch
 
     if not (torch.equal(a.keys, b.keys) and torch.equal(a.count, b.count)):
@@ -296,9 +313,32 @@ def state_diff(name: str, a, b) -> float:
             both_inf = torch.isinf(x) & (x == y)
             d = torch.where(both_inf, 0.0, (x - y).abs())
             err = max(err, float(d.max()))
-    if err != 0.0:
-        raise SystemExit(f"FAIL {name}: planes differ by {err} (tolerance: exact)")
+            if f == "sum" and sum_tol is not None and bool((d <= sum_tol).all()):
+                continue
+            if float(d.max()) != 0.0:
+                tol = "exact" if f != "sum" or sum_tol is None else "2 count 2^-24 sum|s|"
+                raise SystemExit(f"FAIL {name}: {f} planes differ by {float(d.max())} "
+                                 f"(tolerance: {tol})")
     return err
+
+
+def sum_tolerance(plain, args, kw):
+    """The bound on a combined row's sum in float32 whatever the order of
+    its additions, ``2 count 2^-24 sum|s|`` over the input rows ``s`` it
+    combines (|s| summed by the plain version on the inputs' absolute
+    sums), or None where every input sum is integer-valued (the script's
+    integer payloads: then any order is exact and the planes must be
+    equal)."""
+    import dataclasses
+
+    import torch
+
+    states = [x for x in args if hasattr(x, "sum")]
+    if all(bool((s.sum == s.sum.round()).all()) for s in states):
+        return None
+    absolute = [dataclasses.replace(x, sum=x.sum.abs()) if hasattr(x, "sum") else x for x in args]
+    out = plain(*absolute, **kw)
+    return 2.0 * out.count[:, None].to(torch.float32) * 2.0 ** -24 * out.sum
 
 
 def row_bytes(state) -> int:
@@ -649,7 +689,7 @@ def _compare(name: str, args, kw) -> float:
         if not same:
             raise SystemExit(f"FAIL {name}: differs from the plain version")
         return 0.0
-    return state_diff(name, got, want)
+    return state_diff(name, got, want, sum_tolerance(getattr(mod, plain), args, kw))
 
 
 MAX_ERR: dict[str, float] = {}
@@ -1786,27 +1826,38 @@ def spill_parity_stream(dev, by_path: dict) -> dict:
     return info
 
 
+def unchanged(name: str, es, fn):
+    """Run ``fn`` (a snapshot); fail unless every tensor of the engine
+    ``es`` is byte-identical after it and its host counters are equal.
+    Returns ``(fn's result, the number of tensors)``."""
+    import torch
+
+    tensors = [getattr(s, f) for s in (es.table, es.table2, es.store)
+               for f in ("keys", "count", "sum", "min", "max")] + [es.frontier]
+    before = [t.clone() for t in tensors]
+
+    def host():
+        return (list(es.lens), es.cursor, es.ridx, es.spilled, es.absorbed, es.dups,
+                es.resident, es.resident2)
+
+    counters = host()
+    out = fn()
+    same = [torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+            for a, b in zip(before, tensors)]
+    if not all(same) or counters != host():
+        raise SystemExit(f"FAIL {name}: the engine changed")
+    return out, len(tensors)
+
+
 def snapshot_unchanged(agg, absorbed) -> None:
     """A snapshot of the live engine: every engine tensor byte-identical
     before and after, and the snapshot equal to the oracle of what was
     absorbed."""
-    import torch
-
-    es = agg._es
-    tensors = [getattr(s, f) for s in (es.table, es.table2, es.store)
-               for f in ("keys", "count", "sum", "min", "max")] + [es.frontier]
-    before = [t.clone() for t in tensors]
-    host = (list(es.lens), es.cursor, es.ridx, es.spilled, es.absorbed, es.dups, es.resident)
-    state, _ = agg.snapshot()
-    same = [torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
-            for a, b in zip(before, tensors)]
-    if not all(same) or host != (list(es.lens), es.cursor, es.ridx, es.spilled, es.absorbed,
-                                 es.dups, es.resident):
-        raise SystemExit("FAIL stream snapshot: the engine changed")
+    (state, _), n_tensors = unchanged("stream snapshot", agg._es, agg.snapshot)
     keys = np.concatenate([k for k, _ in absorbed])
     vals = np.concatenate([v for _, v in absorbed])
     check_oracle("stream snapshot", state, oracle(keys, vals[:, 0]))
-    log(f"phase 11d: the snapshot after {keys.size} rows left {len(tensors)} engine tensors "
+    log(f"phase 11d: the snapshot after {keys.size} rows left {n_tensors} engine tensors "
         "byte-identical")
 
 
@@ -1815,6 +1866,261 @@ def stream_path(dev, rows, q18, main: dict, by_path: dict) -> dict:
     out = stream_sf10(dev, rows, q18, main, by_path)
     out["phase change"] = stream_phase_change(dev, by_path)
     out["spill parity"] = spill_parity_stream(dev, by_path)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: aggregation as a service
+# ---------------------------------------------------------------------------
+
+SERVICE_SNAPSHOTS_AT = (5, 10)  # part a: snapshots after these column batches; evict at the last
+SERVICE_DRIFT = dict(chunks=64, chunk_rows=1 << 20, every=8, ttl=2)  # part b
+
+
+def bincount_oracle(keys: np.ndarray, vals: np.ndarray):
+    """Group keys, counts, float64 sums and sums of |value| of small
+    non-negative integer keys, by ``np.bincount`` (the keys index the bins)."""
+    cnt = np.bincount(keys)
+    uk = np.flatnonzero(cnt)
+    v = vals.astype(np.float64)
+    return (uk.astype(keys.dtype), cnt[uk], np.bincount(keys, weights=v)[uk],
+            np.bincount(keys, weights=np.abs(v))[uk])
+
+
+def check_relation(name: str, keys, counts, sums, want, *, exact: bool) -> float:
+    """Keys and counts equal to the oracle; sums exactly, or within float32's
+    bound for adding a group's values in another order (2 n 2^-24 Σ|x|).
+    Returns the largest |sum difference|."""
+    uk, ucnt, usums, uabs = want
+    check_equal(f"{name} keys", keys, uk)
+    check_equal(f"{name} counts", counts, ucnt)
+    sums = np.asarray(sums, np.float64)
+    if exact:
+        check_equal(f"{name} sums", sums, usums)
+        return 0.0
+    err = np.abs(sums - usums)
+    tol = 2.0 * ucnt * 2.0 ** -24 * uabs + 1e-30
+    if not bool(np.all(err <= tol)):
+        raise SystemExit(f"FAIL {name} sums: {int(np.sum(err > tol))} groups past 2 n 2^-24 "
+                         "sum|x|")
+    return float(err.max()) if err.size else 0.0
+
+
+def resident_below(es, threshold: int) -> int:
+    """The engine's resident rows with key below ``threshold``, counted in
+    NumPy on host copies of the run store and the tables (their rows past
+    the valid ones are EMPTY, above every threshold)."""
+    n = int(np.count_nonzero(es.store.keys.cpu().numpy() < threshold))
+    for t in (es.table, es.table2):
+        n += int(np.count_nonzero(t.keys.cpu().numpy() < threshold))
+    return n
+
+
+def service_sf10(dev, rows, by_path: dict) -> dict:
+    """Phase 12 a: SF-10 Q18 as a service.  Phase 11a's 15 column batches of
+    2^22 rows through ``repro_torch.serve_aggregate`` (``rs``); snapshots
+    after batches 5 and 10, each equal to the oracle of its prefix and
+    leaving every engine tensor byte-identical; after batch 10
+    ``expire_below`` retires the orders below the prefix's 25th-percentile
+    order key (``rows_retired`` equal to a NumPy count of the engine's rows
+    below it); the close equals the oracle of every row at or above the
+    cutoff plus the rows that arrived after the eviction."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.types import SYNCS
+    from repro_torch.data.pipeline import iter_column_batches
+    from repro_torch.kernels import ops
+
+    cfg = repro_torch.ExecConfig(**MAIN_CFG)
+    keys, qty = rows["orderkey"], rows["quantity"]
+    n, B = keys.size, STREAM_BATCH_ROWS
+    path = "service sf10"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    SYNCS["host_syncs"] = 0
+    sess = repro_torch.serve_aggregate(
+        by=repro_torch.KeySpec.of(orderkey=26), values="quantity", aggs=("count", "sum"),
+        watermark="orderkey", cfg=cfg, policy="rs", device=dev)
+    walls, snaps, cutoff, retired = {"ingest": 0.0}, [], None, None
+    with capture(path):
+        for i, batch in enumerate(iter_column_batches({"orderkey": keys, "quantity": qty}, B)):
+            t0 = time.perf_counter()
+            sess.ingest(batch)
+            if i + 1 in SERVICE_SNAPSHOTS_AT:  # the queried state: every batch absorbed
+                sess._svc.flush()
+                sess._svc.wait()
+            walls["ingest"] += time.perf_counter() - t0
+            if i + 1 not in SERVICE_SNAPSHOTS_AT:
+                continue
+            svc = sess._svc
+            syncs = SYNCS["host_syncs"]
+            (res, n_tensors), wall = timed(
+                lambda: unchanged(f"{path} snapshot", svc._agg._es, sess.snapshot))
+            snap_syncs = SYNCS["host_syncs"] - syncs
+            rel = res.relation()
+            m = (i + 1) * B
+            check_relation(f"{path} snapshot after {i + 1} batches", rel["orderkey"],
+                           rel["count"], rel["sum"][:, 0], bincount_oracle(keys[:m], qty[:m]),
+                           exact=True)
+            snaps.append(dict(batches=i + 1, rows=m, wall_s=wall, host_syncs=snap_syncs,
+                              engine_tensors_unchanged=n_tensors,
+                              max_memory_allocated=torch.cuda.max_memory_allocated(),
+                              stats=res.stats.as_dict()))
+            del res, rel
+            if i + 1 == SERVICE_SNAPSHOTS_AT[-1]:
+                cutoff = int(np.partition(keys[:m], m // 4)[m // 4])
+                want = resident_below(svc._agg._es, cutoff)
+                retired, walls["expire"] = timed(lambda: sess.expire_below(orderkey=cutoff))
+                if retired != want or retired <= 0:
+                    raise SystemExit(f"FAIL {path}: rows_retired {retired}, NumPy's count "
+                                     f"{want}")
+        final, walls["close"] = timed(sess.close)
+    launches = dict(ops.LAUNCHES)
+    by_path[path] = launches
+    require_launches(path, launches, AGG_KERNELS)
+    require_on_card(path, final)
+    m = SERVICE_SNAPSHOTS_AT[-1] * B
+    live = np.ones(n, bool)
+    live[:m] = keys[:m] >= cutoff
+    rel = final.relation()
+    check_relation(f"{path} close", rel["orderkey"], rel["count"], rel["sum"][:, 0],
+                   bincount_oracle(keys[live], qty[live]), exact=True)
+    if final.stats.rows_retired != retired:
+        raise SystemExit(f"FAIL {path}: the close reports {final.stats.rows_retired} rows "
+                         f"retired, the eviction {retired}")
+    info = dict(rows=n, batch_rows=B, walls_s=walls, ingest_rows_per_s=n / walls["ingest"],
+                host_syncs=SYNCS["host_syncs"], snapshots=snaps, cutoff=cutoff,
+                rows_retired=retired, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches=launches, plan_calibrated_backend=final.plan["cost_model"][
+                    "calibrated_backend"], metrics=sess.metrics.summary(),
+                stats=final.stats.as_dict())
+    del final, rel
+    log(f"phase 12a, {path} ok: {json.dumps(info)}")
+    settle(path)
+    return info
+
+
+def service_drift(dev, by_path: dict) -> dict:
+    """Phase 12 b: ``launch/serve_agg.py``'s drifting traffic at card scale
+    through ``AggregationService`` at phase 3's ``ExecConfig``: 64 chunks of
+    2^20 rows (key space 2^20, drift 0.02 a chunk), a snapshot every 8
+    chunks after the TTL-2 eviction ``serve()`` applies, once with ``rs``
+    and once with ``adaptive`` under the committed constants, which must be
+    the card's.  The close equals the oracle of the rows not retired."""
+    import torch
+
+    from repro_torch.core import schema
+    from repro_torch.core.types import SYNCS, ExecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_agg
+    from repro_torch.service import AggregationService
+
+    cfg = ExecConfig(**MAIN_CFG)
+    c = SERVICE_DRIFT
+    keyspace, n = c["chunk_rows"], c["chunks"] * c["chunk_rows"]
+    chunks = list(serve_agg.synth_chunks(c["chunks"], c["chunk_rows"], keyspace=keyspace,
+                                         seed=SEED))
+    plan = schema._plan(n, cfg, n, device_type=dev.type)
+    out = {}
+    for policy in ("rs", "adaptive"):
+        path = f"service drift {policy}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        SYNCS["host_syncs"] = 0
+        svc = AggregationService(cfg, policy=policy, width=1,
+                                 output_rows=1 << (n - 1).bit_length(), output_estimate=n,
+                                 device=dev)
+        t_ingest, ingest_syncs, snap_syncs, evictions = 0.0, 0, [], []
+        with capture(path):
+            for i, (k, p) in enumerate(chunks):
+                boundary = (i + 1) % c["every"] == 0 or i + 1 == len(chunks)
+                s0, t0 = SYNCS["host_syncs"], time.perf_counter()
+                svc.ingest(k, p)
+                if boundary:  # the held chunk is absorbed before the query
+                    svc.flush()
+                    svc.wait()
+                t_ingest += time.perf_counter() - t0
+                ingest_syncs += SYNCS["host_syncs"] - s0
+                if (i + 1) % c["every"]:
+                    continue
+                cut = serve_agg.ttl_cutoff(i + 1, ttl=c["ttl"], snapshot_every=c["every"],
+                                           keyspace=keyspace)
+                if cut > 0:
+                    svc.retire_below(cut)
+                    evictions.append((i + 1, cut))
+                s0 = SYNCS["host_syncs"]
+                svc.snapshot()
+                snap_syncs.append(SYNCS["host_syncs"] - s0)
+            (state, stats), close_s = timed(svc.close)
+        launches = dict(ops.LAUNCHES)
+        by_path[path] = launches
+        agg = svc._agg
+        arms = arms_of(agg) if agg._governor is not None else [policy]
+        require_launches(path, launches, kernels_of(arms))
+        # a chunk's rows are retired by the newest eviction after it
+        thr = np.zeros(c["chunks"], np.int64)
+        for done, cut in evictions:
+            thr[:done] = np.maximum(thr[:done], cut)
+        keys = np.concatenate([k for k, _ in chunks])
+        vals = np.concatenate([v[:, 0] for _, v in chunks])
+        live = keys >= np.repeat(thr, c["chunk_rows"])
+        got = state_relation(state)
+        err = check_relation(f"{path} close", *got, bincount_oracle(keys[live], vals[live]),
+                             exact=False)
+        del keys, vals, live, got, state
+        m = svc.metrics
+        info = dict(
+            rows=n, ingest_s=t_ingest, ingest_rows_per_s=n / t_ingest, close_s=close_s,
+            snapshot_p50_s=m.snapshot_latency_s(0.5), snapshot_p99_s=m.snapshot_latency_s(0.99),
+            snapshot_latencies_s=m.snapshot_latencies_s, host_syncs_ingest=ingest_syncs,
+            host_syncs_snapshots=snap_syncs, evictions=evictions,
+            rows_retired=stats.rows_retired, max_sum_diff=err, arms=arms,
+            policy_switches=stats.policy_switches, readbacks_paid=stats.readbacks_paid,
+            plan_calibrated_backend=plan["cost_model"]["calibrated_backend"],
+            max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+            metrics=m.summary(), stats=stats.as_dict())
+        if agg._governor is not None:
+            info["governor_constants"] = agg._governor._constants["meta"].get("backend")
+        if "cuda" not in (info["plan_calibrated_backend"], info.get("governor_constants", "cuda")):
+            raise SystemExit(f"FAIL {path}: planned under another device's constants: {info}")
+        log(f"phase 12b, {path} ok: {json.dumps(info)}")
+        settle(path)
+        out[path] = info
+    return out
+
+
+def service_launcher() -> dict:
+    """Phase 12 c: ``python -m repro_torch.launch.serve_agg --smoke`` on the
+    card, in its own process."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_agg", "--smoke"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not any(x.startswith("ingested 6144 rows") and " on cuda" in x
+                                    for x in lines):
+        raise SystemExit(f"FAIL serve_agg --smoke: rc {r.returncode}\n{r.stdout}\n{r.stderr}")
+    info = dict(wall_s=wall, report=lines[-3:])
+    log(f"phase 12c, serve_agg --smoke ok: {json.dumps(info)}")
+    return info
+
+
+def service_path(dev, rows, by_path: dict) -> dict:
+    """Phase 12: aggregation as a service (parts a–c); the aggregate kernels
+    must each have launched on it."""
+    out = {"sf10": service_sf10(dev, rows, by_path)}
+    out.update(service_drift(dev, by_path))
+    out["launcher"] = service_launcher()
+    total = {k: sum(v[k] for p, v in by_path.items() if p.startswith("service"))
+             for k in AGG_KERNELS}
+    require_launches("service", total, AGG_KERNELS)
+    log(f"phase 12 launches: {json.dumps(total)}")
     return out
 
 
@@ -1901,6 +2207,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     baselines_path(dev, rows, q18, rng, by_path, main)
     stream_path(dev, rows, q18, main, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    service_path(dev, rows, by_path)
     kernels = kernel_records(by_path)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

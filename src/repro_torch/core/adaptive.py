@@ -70,7 +70,8 @@ class GovernorConfig:
     set.  ``merge_levels``: spill amortization depth fed to the cost
     model (defaults to one pre-merge level).  ``constants`` injects a
     constants entry; otherwise ``backend``, a torch device type, picks the
-    committed entry (``"cpu"``, the only one, for every device)."""
+    committed entry (``"cuda"`` for a card, ``"cpu"`` for any other
+    device)."""
 
     interval_chunks: int = 4
     hysteresis: float = 0.10

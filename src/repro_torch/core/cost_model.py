@@ -5,10 +5,11 @@ the reference.
 
 All quantities are in rows (the paper's unit).  The calibrated layer
 (per-row times from ``core/_cost_constants.py``, the port's own copy of
-the reference's committed table) turns them into seconds for the plan's
-``cost_model`` entry.  The table is keyed by the torch device type; it
-holds a ``"cpu"`` entry only, which every device falls back to, so the
-times it gives for a card are the CPU's.
+the reference's committed table, and the card's own entry) turns them
+into seconds for the plan's ``cost_model`` entry.  The table is keyed by
+the torch device type: ``"cpu"`` (the reference's CPU calibration) and
+``"cuda"`` (measured on an H100 by ``scripts/calibrate_torch.py``); a
+device without an entry falls back to the CPU's.
 """
 from __future__ import annotations
 

@@ -11,10 +11,11 @@ frontier (the least key any run can still deliver) are final and stream
 out of the left edge of the index.
 
 The reference runs the page loop as a ``while_loop``.  Here the page count
-is known up front — Σ⌈lens/P⌉, one readback of the run lengths — so the
-loop runs exactly that many pages, and the priority queue, the chosen run,
-the cursors and the emission cursor all stay on the device: the loop pays
-no per-page host sync.
+is known up front — Σ⌈lens/P⌉, one readback of the run lengths, none where
+the caller knows them on the host — so the loop runs exactly that many
+pages, and the priority queue, the chosen run, the cursors and the
+emission cursor all stay on the device: the loop pays no per-page host
+sync.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from repro_torch.core.types import (
     ExecConfig,
     SpillStats,
     concat_states,
+    device_ints,
     empty_like,
     empty_state,
     host_ints,
@@ -152,23 +154,45 @@ def trim_to_capacity(state: AggState, capacity: int):
     return state.map(lambda x: x[:capacity]), dropped
 
 
-def wide_merge_device(store: AggState, lens: torch.Tensor, *, page_rows: int,
-                      index_rows: int, out_capacity: int, backend: str = "auto"):
+def wide_merge_device(store: AggState, lens, *, page_rows: int, index_rows: int,
+                      out_capacity: int | None = None, backend: str = "auto",
+                      out: AggState | None = None):
     """The page loop over a stacked run store (fields ``(R, C, ...)``, runs
     sorted and EMPTY-padded, ``C`` a multiple of ``page_rows``).
+
+    ``lens`` are the run lengths: a device tensor, whose page count the
+    loop reads back once, or host ints, which spare it that readback.
+    ``out`` is a caller-provided output buffer (all EMPTY, of the store's
+    key dtype and plane widths; the merge-on-read snapshot emits into a
+    fresh one): the rows are written into its tensors and it is returned.
+    Without it a buffer of ``out_capacity`` rows is allocated here.
 
     Returns ``(out, rows_emitted, pages_read, max_index_occupancy,
     overflow, dropped)``; ``pages_read`` is a host int, the rest are device
     tensors.  ``dropped`` flags lost rows (index past its hard capacity or
-    output past ``out_capacity``), ``overflow`` an index past
+    output past the output's capacity), ``overflow`` an index past
     ``index_rows``."""
     R, C = store.keys.shape
     P = page_rows
     W = index_rows + P
     dev = store.device
     empty = store.empty
-    n_pages = (lens.to(torch.int64) + P - 1) // P
-    (total_pages,) = host_ints(n_pages.sum())  # the loop's one readback
+    if out is not None:
+        if out.key_dtype != store.key_dtype or out.widths != store.widths:
+            raise ValueError(
+                f"caller-provided out buffer (dtype {out.key_dtype}, widths {out.widths}) "
+                f"does not match the run store (dtype {store.key_dtype}, widths "
+                f"{store.widths})")
+        out_capacity = out.capacity
+    elif out_capacity is None:
+        raise ValueError("wide_merge_device needs out= or out_capacity=")
+    if isinstance(lens, torch.Tensor):
+        n_pages = (lens.to(torch.int64) + P - 1) // P
+        (total_pages,) = host_ints(n_pages.sum())  # the loop's one readback
+    else:
+        host_pages = [(int(n) + P - 1) // P for n in lens]
+        total_pages = sum(host_pages)
+        n_pages = device_ints(host_pages, dev)
     arange_R = torch.arange(R, device=dev)
     ar_WP = torch.arange(W + P, device=dev)
     ar_W = torch.arange(W, device=dev)
@@ -179,8 +203,9 @@ def wide_merge_device(store: AggState, lens: torch.Tensor, *, page_rows: int,
         return torch.where(cursors < n_pages, k, empty)
 
     # one extra trash row takes the scatter of rows that are not emitted
-    out = empty_state(out_capacity + 1, store.width, key_dtype=store.key_dtype,
-                      widths=store.widths, device=dev)
+    caller_out, out = out, empty_state(out_capacity + 1, store.width,
+                                       key_dtype=store.key_dtype, widths=store.widths,
+                                       device=dev)
     index = empty_state(W, store.width, key_dtype=store.key_dtype, widths=store.widths,
                         device=dev)
     cursors = torch.zeros(R, dtype=torch.int64, device=dev)
@@ -215,6 +240,10 @@ def wide_merge_device(store: AggState, lens: torch.Tensor, *, page_rows: int,
         overflow = overflow | (resident > index_rows)
     dropped = (max_occ > W) | (out_cur > out_capacity)
     out = out.map(lambda x: x[:out_capacity])
+    if caller_out is not None:
+        for f in FIELDS:
+            getattr(caller_out, f).copy_(getattr(out, f))
+        out = caller_out
     return out, out_cur, total_pages, max_occ, overflow, dropped
 
 

@@ -44,6 +44,7 @@ from repro_torch.core.types import (
     StreamEngineState,
     canon_keys,
     canon_payload,
+    device_ints,
     empty_key,
     empty_like,
     empty_state,
@@ -229,7 +230,7 @@ def _step_rs(es: StreamEngineState, ck: torch.Tensor, cp, *, M: int, B: int, bac
             es.cursor += n_ev
             es.spilled += n_ev
         occ_r, occ_n = host_ints(es.table.occupancy(), es.table2.occupancy())
-    es.resident = occ_r + occ_n
+    es.resident, es.resident2 = occ_r + occ_n, occ_n
 
 
 def _engine_step(es: StreamEngineState, ck: torch.Tensor, cp, *, policy: str, M: int,
@@ -245,7 +246,9 @@ def _engine_step(es: StreamEngineState, ck: torch.Tensor, cp, *, policy: str, M:
 
 def _engine_finish(es: StreamEngineState, *, policy: str):
     """Drain the engine into the run slots.  Returns ``(store, lens,
-    table, spilled, nruns, overflow)`` with host ints and lists.
+    table, spilled, nruns, overflow)`` with host ints and lists; the tables'
+    occupancies are the host's (``resident``), so the drain reads nothing
+    back.
 
     ``early_agg`` mirrors the resident table into the next slot, so the
     wide merge always sees the whole picture; it counts as a spilled run
@@ -261,7 +264,7 @@ def _engine_finish(es: StreamEngineState, *, policy: str):
     if policy in ("traditional", "inrun_dedup"):
         return es.store, list(es.lens), es.table, es.spilled, es.ridx, es.ridx > R
     if policy == "early_agg":
-        (occ_t,) = host_ints(es.table.occupancy())
+        occ_t = es.resident
         lens = list(es.lens)
         _write_slot(es.store, es.ridx, 0, es.table)
         if es.ridx < R:
@@ -270,7 +273,7 @@ def _engine_finish(es: StreamEngineState, *, policy: str):
         nruns = es.ridx + (1 if es.ridx > 0 and occ_t > 0 else 0)
         return es.store, lens, es.table, spilled, nruns, es.ridx + 1 > R
     rt, nt = es.table, es.table2
-    occ_r, occ_n = host_ints(rt.occupancy(), nt.occupancy())
+    occ_r, occ_n = es.resident - es.resident2, es.resident2
     cursor, ridx, lens = es.cursor, es.ridx, list(es.lens)
     evicted_any = ridx > 0 or cursor > 0
 
@@ -380,12 +383,19 @@ def _device_premerge(store: AggState, lens: torch.Tensor, *, fanin: int, levels:
     return store, lens, spilled, steps, nlev
 
 
-def _merge_phase(store: AggState, lens: torch.Tensor, spilled: int, nruns: int,
+def _merge_phase(store: AggState, lens: list[int], spilled: int, nruns: int,
                  overflow: bool, *, page_rows: int, index_rows: int, fanin: int,
                  premerge_levels: int, backend: str, out_capacity: int):
-    """Pre-merge levels + the wide merge + the stats."""
-    store, lens, spill_m, msteps, mlevels = _device_premerge(
-        store, lens, fanin=fanin, levels=premerge_levels, backend=backend)
+    """Pre-merge levels + the wide merge + the stats.  Without pre-merge
+    levels the run lengths stay the host's, and the phase reads nothing
+    back; a level's merged lengths are the device's, and the wide merge
+    reads its page count back once."""
+    if premerge_levels:
+        store, lens, spill_m, msteps, mlevels = _device_premerge(
+            store, device_ints(lens, store.device), fanin=fanin, levels=premerge_levels,
+            backend=backend)
+    else:
+        spill_m = msteps = mlevels = 0
     out, out_cur, pages_read, max_occ, ix_overflow, dropped = merge_mod.wide_merge_device(
         store, lens, page_rows=page_rows, index_rows=index_rows,
         out_capacity=out_capacity, backend=backend)
@@ -437,8 +447,8 @@ def _pipeline_body(keys: torch.Tensor, payload, *, key_dtype, policy: str, memor
         _engine_step(es, keys[rows], None if payload is None else payload[rows],
                      policy=policy, M=M, B=B, backend=backend, ws=ws)
     store, lens, table, spilled, nruns, overflow = _engine_finish(es, policy=policy)
-    lens = torch.tensor(lens, dtype=torch.int64, device=dev)
     if not merge:
+        lens = torch.tensor(lens, dtype=torch.int64, device=dev)
         stats = dataclasses.replace(DeviceSpillStats.zeros(),
                                     rows_spilled_run_generation=spilled,
                                     runs_generated=nruns, run_buffer_overflowed=overflow)
@@ -558,9 +568,9 @@ def _finalize_stream(es: StreamEngineState, retired: int, *, policy: str, page_r
         es = dataclasses.replace(es, store=es.store.map(torch.clone))
     store, lens, _, spilled, nruns, overflow = _engine_finish(es, policy=policy)
     out, stats = _merge_phase(
-        store, torch.tensor(lens, dtype=torch.int64, device=store.device), spilled, nruns,
-        overflow, page_rows=page_rows, index_rows=index_rows, fanin=fanin,
-        premerge_levels=premerge_levels, backend=backend, out_capacity=out_capacity)
+        store, lens, spilled, nruns, overflow, page_rows=page_rows, index_rows=index_rows,
+        fanin=fanin, premerge_levels=premerge_levels, backend=backend,
+        out_capacity=out_capacity)
     return out, dataclasses.replace(stats, rows_retired=retired)
 
 
@@ -628,6 +638,8 @@ def _evict_compact(es: StreamEngineState, threshold: int) -> int:
                                        torch.tensor([occ], device=dev))
         setattr(es, name, lifted.map(lambda x: x[0]))
         es.resident -= cut_t
+        if name == "table2":
+            es.resident2 -= cut_t
         retired += cut_t
     return retired
 
@@ -660,7 +672,7 @@ def _switch_flush(es: StreamEngineState, *, policy: str, backend: str) -> None:
             es.ridx += 1
             es.spilled += occ
         es.table = empty_like(es.table, es.table.capacity)
-    es.resident = 0
+    es.resident = es.resident2 = 0
 
 
 def _switch_reshape(es: StreamEngineState, *, slot_rows: int, capT: int, capT2: int,

@@ -578,8 +578,9 @@ def _plan(n_rows: int, cfg: ExecConfig, output_estimate: int | None, *,
     """Optimizer-style comparison (paper Figs 23/24): the predicted spill
     volumes of the in-sort operator and the hash baseline, and the
     calibrated cost surface of the run-generation policies.  The surface
-    is looked up by device type; with no ``"cuda"`` constants committed,
-    a card's plan carries the CPU's (``calibrated_backend`` says which).
+    is looked up by device type: the card has its own entry, measured on
+    an H100 by ``scripts/calibrate_torch.py``, and a device without one
+    takes the CPU's (``calibrated_backend`` says which).
     ``input_sorted`` credits a key order an upstream ``aggregate``
     established: the sort term of the predicted cost is zero."""
     O = output_estimate or cfg.memory_rows * cfg.fanin
@@ -759,6 +760,22 @@ def _aggregate_stream(batches, *, by: KeySpec, values, aggs: AggSpec, order_by,
     state, stats = pipeline_mod.insort_aggregate_device_stream(chunks, cfg, widths=widths,
                                                                width=V, **kw)
     return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan_of(stats))
+
+
+def serve_aggregate(**kwargs):
+    """Open a long-lived aggregation session — the serving twin of
+    :func:`aggregate` for continuously arriving input.
+
+    The same schema arguments (``by=``, ``values=``, ``aggs=``) plus
+    ``watermark=<major key column>`` for TTL expiry and the streaming
+    engine's knobs (``policy=``, ``cfg=``, ``device=``, …).  The session
+    ingests column batches and answers **merge-on-read snapshots**: sorted
+    :class:`AggResult` relations computed without consuming the live
+    engine, so ingest continues.  See
+    :class:`repro_torch.service.AggregationSession`."""
+    from repro_torch.service import AggregationSession  # lazy: the service imports this module
+
+    return AggregationSession(**kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,17 @@ def host_list(vector: torch.Tensor) -> list[int]:
     return vector.to(torch.int64).tolist()
 
 
+def device_ints(values, device) -> torch.Tensor:
+    """Host ints as an int64 tensor on ``device``.  On a card the copy
+    leaves from pinned memory without waiting for the card: a copy from
+    pageable memory synchronizes the stream, a host sync ``SYNCS`` would not
+    count."""
+    t = torch.tensor(values, dtype=torch.int64)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``cuda`` without a card raises:
     the port never moves to the CPU unless the caller asks for it."""
@@ -289,8 +300,9 @@ class StreamEngineState:
     encounters (rows that combined into an existing group, or adjacent
     equal keys of a sorted batch under ``traditional``).  ``resident`` is
     the tables' occupancy after the last step, which the steps read back
-    anyway; it gives the absorbing steps their occupancy before a batch and
-    the governor its table rows without another readback."""
+    anyway; it gives the absorbing steps their occupancy before a batch, the
+    governor its table rows and the drain its write positions without
+    another readback.  ``resident2`` is ``table2``'s share of it."""
 
     table: AggState
     table2: AggState
@@ -303,6 +315,7 @@ class StreamEngineState:
     absorbed: int = 0
     dups: int = 0
     resident: int = 0
+    resident2: int = 0
 
     @property
     def run_slots(self) -> int:

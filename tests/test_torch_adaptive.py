@@ -139,7 +139,8 @@ def test_governor_config_validation():
     assert pipeline.STREAM_POLICIES == j_pipe.STREAM_POLICIES
     # a dict config, and the committed constants by torch device type
     gov = PolicyGovernor(ExecConfig(**CFG), config={"interval_chunks": 2, "backend": "cuda"})
-    assert gov.interval == 2 and gov._constants == cost_model.load_cost_constants("cpu")
+    assert gov.interval == 2 and gov._constants == cost_model.load_cost_constants("cuda")
+    assert gov._constants["meta"]["backend"] == "cuda"
 
 
 def test_governor_refused_where_it_cannot_steer():

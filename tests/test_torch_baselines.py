@@ -444,10 +444,15 @@ def test_pack_keys_and_oracle_check():
 
 
 def test_cost_constants_match_reference():
-    assert constants.COST_CONSTANTS == j_constants.COST_CONSTANTS
+    """The port's ``cpu`` entry is the reference's committed table; the
+    card has its own entry (``scripts/calibrate_torch.py`` on an H100),
+    which the reference does not have."""
+    assert constants.COST_CONSTANTS["cpu"] == j_constants.COST_CONSTANTS["cpu"]
+    assert sorted(constants.COST_CONSTANTS) == ["cpu", "cuda"]
     assert constants.COST_SCHEMA_VERSION == j_constants.COST_SCHEMA_VERSION
-    for dev in ("cpu", "cuda", None):
+    for dev in ("cpu", None):
         assert cost_model.load_cost_constants(dev) == j_cost.load_cost_constants(dev)
+    assert cost_model.load_cost_constants("cuda") == constants.COST_CONSTANTS["cuda"]
     bad = {"cpu": dict(constants.COST_CONSTANTS["cpu"], schema_version=0)}
     with pytest.raises(cost_model.StaleConstantsError, match="schema_version"):
         cost_model.validate_constants(bad)

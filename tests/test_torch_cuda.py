@@ -316,11 +316,20 @@ def test_stream_on_the_card_matches_cpu(dev, policy, key_dtype):
         assert got[1]["policy_switches"] >= 1 and got[2][0]["to"] == "early_agg"
 
 
-def test_streamed_front_door_on_the_card_matches_cpu(dev):
+def test_streamed_front_door_on_the_card_matches_cpu(dev, monkeypatch):
     """Column batches through ``repro_torch.aggregate``, ``insort`` and
-    ``auto`` (adaptive), on the card and on the CPU."""
+    ``auto`` (adaptive), on the card and on the CPU.  The governor steers by
+    its device type's constants, and the card has its own: both sides steer
+    by the card's here, so that they pick the same arms."""
+    from repro_torch.core import adaptive
     from repro_torch.data.pipeline import iter_column_batches
 
+    class CardConstants(adaptive.GovernorConfig):
+        def __post_init__(self):
+            self.backend = "cuda"
+            super().__post_init__()
+
+    monkeypatch.setattr(adaptive, "GovernorConfig", CardConstants)
     cols = {"k": RNG.integers(0, 3000, 20_000).astype(np.uint32),
             "x": RNG.integers(0, 50, 20_000).astype(np.float32)}
     cfg = ExecConfig(memory_rows=512, batch_rows=128, page_rows=64, fanin=4)
@@ -334,6 +343,72 @@ def test_streamed_front_door_on_the_card_matches_cpu(dev):
         a, b = res[0].relation(), res[1].relation()
         for c in a:
             np.testing.assert_array_equal(a[c], b[c], err_msg=c)
+
+
+def test_card_plans_read_the_cards_constants(dev):
+    """A plan made on the card reads the ``"cuda"`` entry; the governor of
+    an adaptive stream on the card steers by it."""
+    cols = {"k": RNG.integers(0, 3000, 5000).astype(np.uint32)}
+    cfg = ExecConfig(memory_rows=512, batch_rows=128, page_rows=64, fanin=4)
+    by = repro_torch.KeySpec.of(k=12)
+    for d, want in ((dev, "cuda"), ("cpu", "cpu")):
+        res = repro_torch.aggregate(cols, by=by, cfg=cfg, device=d)
+        assert res.plan["cost_model"]["calibrated_backend"] == want
+        sess = repro_torch.serve_aggregate(by=by, cfg=cfg, device=d)
+        sess.ingest(cols)
+        assert sess.snapshot().plan["cost_model"]["calibrated_backend"] == want
+    agg = pipeline.StreamingAggregator(cfg, policy="adaptive", device=dev)
+    assert agg._governor._constants["meta"]["backend"] == "cuda"
+
+
+def _service_on(d, policy, keys, pay):
+    """A service in chunks of 1,024 rows on device ``d``: a snapshot at a
+    third (every engine tensor equal after it), an eviction below the upper
+    quarter of the keys at two thirds, ingest after it, close.  Returns the
+    snapshots, stats and rows retired as NumPy and host values."""
+    from repro_torch.service import AggregationService
+
+    cfg = ExecConfig(memory_rows=512, batch_rows=128, page_rows=64, fanin=4)
+    svc = AggregationService(cfg, policy=policy, key_dtype=keys.dtype, width=1, device=d)
+    out = []
+    n = keys.size
+    for i in range(0, n, 1024):
+        svc.ingest(keys[i:i + 1024], pay[i:i + 1024])
+        if i == (n // 3) // 1024 * 1024:
+            svc.flush()
+            es = svc._agg._es
+            tensors = [getattr(s, f) for s in (es.table, es.table2, es.store)
+                       for f in ("keys", "count", "sum", "min", "max")] + [es.frontier]
+            before = [t.clone() for t in tensors]
+            state, stats = svc.snapshot()
+            assert all(torch.equal(a, b) for a, b in zip(before, tensors))
+            out.append((state_to_numpy(state), stats.as_dict()))
+        if i == (2 * n // 3) // 1024 * 1024:
+            out.append(svc.retire_below(int(np.sort(keys)[3 * n // 4])))
+            state, stats = svc.snapshot()
+            out.append((state_to_numpy(state), stats.as_dict()))
+    state, stats = svc.close()
+    out.append((state_to_numpy(state), stats.as_dict()))
+    return out
+
+
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+@pytest.mark.parametrize("policy", ["rs", "early_agg", "traditional"])
+def test_service_on_the_card_matches_cpu(dev, policy, key_dtype):
+    """``AggregationService`` on the card against its plain CPU run: the
+    snapshot (which leaves every engine tensor equal), the eviction's count,
+    the snapshot after it and the close; the aggregate kernels launched."""
+    keys, pay = _phase_change(key_dtype)
+    ops.reset_launch_counts()
+    got = _service_on(dev, policy, keys, pay)
+    assert ops.LAUNCHES["argsort"] > 0 and ops.LAUNCHES["merge_absorb"] > 0
+    want = _service_on("cpu", policy, keys, pay)
+    assert got[1] == want[1] and got[1] > 0
+    for (ga, gs), (wa, ws) in zip(got[:1] + got[2:], want[:1] + want[2:]):
+        assert gs == ws
+        for f in ga:
+            np.testing.assert_array_equal(ga[f], wa[f], err_msg=f)
+    assert got[-1][1]["rows_retired"] == got[1]
 
 
 @pytest.mark.parametrize("n,chunk,domain", [(20_000, 1024, 3000), (5000, 300, 1), (1, 16, 5),
