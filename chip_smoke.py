@@ -102,7 +102,29 @@ with a non-zero exit):
    ``cuda``), the close equal to the oracle of the rows not retired (normal
    payloads: sums within 2 n 2^-24 sum|x|, and the kernels within the same
    bound of their plain versions); c) ``python -m
-   repro_torch.launch.serve_agg --smoke``.
+   repro_torch.launch.serve_agg --smoke``;
+13. distributed aggregation: 4 ranks (``torch.multiprocessing`` processes
+   joined over gloo, sharing the card; each reads its slice of NumPy files
+   this script wrote, by ``mmap``): a) phase 3's SF-10 Q18 through
+   ``repro_torch.aggregate(mesh=)``, the ranks' shards concatenated equal
+   to the oracle exactly, rank r's keys below rank r+1's, ``SpillStats``
+   equal on every rank, fewer rows exchanged than the input holds, with
+   each rank's wall, host syncs, peak memory and launches; b) phase 6's
+   Q18 merge join and Q4 semi and anti joins with both sides aggregated
+   on the mesh (``merge_join(mesh=)``), equal to phase 6's joins; c)
+   ``serve_agg``'s drifting traffic cut to 16 chunks of 2^20 rows through a
+   mesh stream and a mesh ``AggregationService`` (``rs``, a snapshot every
+   4 chunks after the TTL-2 eviction, every engine tensor byte-identical
+   across it; the close), each equal to the oracle of the rows not
+   retired; d) 2^20 SF-10 rows at the spill-parity ``ExecConfig`` on the
+   card and on CPU ranks over the same gloo group: equal rows and
+   ``SpillStats``, which equal the ranks' one-device runs reduced but for
+   the exchange's fields; e) ``python -m repro_torch.launch.shard_agg
+   --world 4 --dist-backend gloo`` at 2^26 rows, Zipf s = 1.2, against its
+   oracle, and its ``--smoke``.  Each rank counts its kernels' launches
+   from zero and fails if one never launched; rank 0 holds its kernels'
+   inputs against the plain versions.  Part a runs again on NCCL, one rank
+   a card, where there are two cards.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -1045,6 +1067,9 @@ def join_path(dev, L, q18, lines, rng, sf=10) -> dict:
     if np.intersect1d(got_semi, got_anti).size or got_anti.size == 0:
         raise SystemExit("FAIL Q4: semi and anti joins overlap, or the anti join is empty")
     check_equal("Q4 semi ∪ anti", np.union1d(got_semi, got_anti), W.relation()["orderkey"])
+    # phase 13 joins the same relations on the mesh and must equal these
+    JOIN_DATA.update(okey=okey[perm], price=price[perm], w_keys=okey[perm][in_q],
+                     c_keys=lines["orderkey"][late], inner=rel, semi=got_semi, anti=got_anti)
     del O, W, C, J, semi, anti
     settle("join inputs")
     settle("merge_join", ("join_probe",))
@@ -2124,6 +2149,371 @@ def service_path(dev, rows, by_path: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: distributed aggregation on a mesh of ranks (one process each)
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 4
+MESH_DRIFT = dict(chunks=16, chunk_rows=1 << 20, every=4, ttl=2)  # part c
+MESH_SHARD_AGG = ("--rows", str(1 << 26), "--zipf", "1.2", "--memory-rows",
+                  str(MAIN_CFG["memory_rows"]), "--batch-rows", str(MAIN_CFG["batch_rows"]))
+EXCHANGE_FIELDS = ("rows_exchanged", "exchange_quota", "exchange_max_fill", "exchange_retries")
+JOIN_DATA: dict = {}  # phase 6's orders and its one-device joins, for part b
+
+
+def _mesh_part(report: dict, path: str, rank: int, mesh, kernels, fn):
+    """Run one part of phase 13 on this rank: launches counted from zero,
+    rank 0's kernel inputs captured, wall, host syncs and peak memory.  A
+    rank whose part never launched one of ``kernels`` fails."""
+    import torch
+
+    from repro_torch.core.types import SYNCS
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+
+    sharding.barrier(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    SYNCS["host_syncs"] = 0
+    collectives = dict(sharding.COLLECTIVES)
+    t0 = time.perf_counter()
+    with capture(path) if rank == 0 else contextlib.nullcontext():
+        out, info = fn()
+        torch.cuda.synchronize()
+    info = dict(wall_s=time.perf_counter() - t0, host_syncs=SYNCS["host_syncs"],
+                collectives={k: v - collectives[k] for k, v in sharding.COLLECTIVES.items()},
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches=dict(ops.LAUNCHES), **info)
+    require_launches(f"{path} rank {rank}", info["launches"], kernels)
+    report[path] = info
+    return out
+
+
+def _shard_rows(state):
+    from repro_torch.core.types import keys_to_numpy
+
+    keys = keys_to_numpy(state.keys, state.key_dtype)
+    live = keys != np.iinfo(keys.dtype).max
+    return (keys[live], state.count.cpu().numpy()[live],
+            state.sum[:, 0].cpu().numpy().astype(np.float64)[live])
+
+
+def mesh_rank(rank: int, world: int, rdv: str, run_dir: str, backend: str, parts: str) -> None:
+    """One rank of phase 13 (``torch.multiprocessing`` target): join the
+    ranks over ``backend``, run ``parts`` ("abcd") on the mesh, write the
+    rank's report and result shards under ``run_dir``.  Any failure
+    raises, which fails the parent."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core import pipeline
+    from repro_torch.core.types import ExecConfig, state_to_numpy
+    from repro_torch.distributed import groupby as gb
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import serve_agg
+    from repro_torch.service import AggregationService
+
+    sharding.init_distributed(backend=backend, num_processes=world, process_id=rank,
+                              init_method=f"file://{rdv}", timeout_s=900)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = sharding.data_mesh("data", device=dev)
+    d = Path(run_dir)
+    tag = f"{backend}{world}"
+    report: dict = {"rank": rank, "world": world, "backend": backend, "device": str(dev)}
+    by = repro_torch.KeySpec.of(orderkey=26)
+    cfg = ExecConfig(**MAIN_CFG)
+
+    def rows(name):  # this rank's slice of a column the parent wrote
+        return sharding.local_slice(np.load(d / f"{name}.npy", mmap_mode="r"), mesh, pad=False)
+
+    def agg(keys, values=None, aggs=("count",)):
+        return repro_torch.aggregate({"orderkey": keys}, by=by, values=values, aggs=aggs,
+                                     cfg=cfg, mesh=mesh, device=dev)
+
+    # a) SF-10 Q18's inner aggregate, the rank's rows of phase 3's input
+    def part_a():
+        res = agg(rows("orderkey"), rows("quantity"), ("count", "sum"))
+        return res, dict(stats=res.stats.as_dict(), plan_mesh=res.plan["mesh"])
+
+    L = _mesh_part(report, f"mesh aggregate {tag}", rank, mesh, AGG_KERNELS, part_a)
+    k, c, s = _shard_rows(L.state)
+    np.savez(d / f"a_{tag}_{rank}.npz", keys=k, count=c, sum=s)
+    if "b" in parts:
+        # b) Q18's merge join and Q4's semi and anti joins, both sides on the mesh
+        def part_b():
+            O = agg(rows("okey"), rows("price"), ("sum",))
+            W, C = agg(rows("w_keys")), agg(rows("c_keys"))
+            J = O.merge_join(L, mesh=mesh)
+            semi = W.merge_join(C, how="semi", mesh=mesh)
+            anti = W.merge_join(C, how="anti", mesh=mesh)
+            return (J, semi, anti), dict(stats=J.stats.as_dict(), plan_mesh=J.plan["mesh"],
+                                         anti_exchange=anti.plan["mesh"]["exchange"])
+
+        J, semi, anti = _mesh_part(report, "mesh merge_join", rank, mesh,
+                                   AGG_KERNELS + ("join_probe",), part_b)
+        t0 = time.perf_counter()
+        rel, got_semi, got_anti = J.relation(), semi.relation(), anti.relation()
+        report["mesh merge_join"]["gather_s"] = time.perf_counter() - t0
+        if rank == 0:
+            np.savez(d / "b.npz", semi=got_semi["orderkey"], anti=got_anti["orderkey"],
+                     **{f"inner_{k}": v for k, v in rel.items()})
+        del J, semi, anti, rel
+    del L
+    if "c" in parts:
+        # c) serve_agg's drifting traffic through a mesh stream and a mesh
+        # service (every rank stages the same chunks and keeps its slice)
+        m = MESH_DRIFT
+        chunks = list(serve_agg.synth_chunks(m["chunks"], m["chunk_rows"],
+                                             keyspace=m["chunk_rows"], seed=SEED))
+        keys = np.concatenate([k for k, _ in chunks])
+        vals = np.concatenate([v[:, 0] for _, v in chunks])
+
+        def part_stream():
+            st, stats = pipeline.insort_aggregate_device_stream(iter(chunks), cfg, policy="rs",
+                                                                mesh=mesh, device=dev)
+            return st, dict(stats=stats.as_dict())
+
+        st = _mesh_part(report, "mesh stream", rank, mesh, AGG_KERNELS, part_stream)
+        whole = gb.gather_state(st, mesh)
+        if rank == 0:
+            err = check_relation("mesh stream", *state_relation(whole),
+                                 bincount_oracle(keys, vals), exact=False)
+            report["mesh stream"]["max_sum_diff"] = err
+        del st, whole
+
+        def part_service():
+            svc = AggregationService(cfg, policy="rs", width=1, mesh=mesh, device=dev)
+            snaps, evictions = [], []
+            thr = np.zeros(len(chunks), np.int64)
+            for i, (kc, pc) in enumerate(chunks):
+                svc.ingest(kc, pc)
+                if (i + 1) % m["every"]:
+                    continue
+                cut = serve_agg.ttl_cutoff(i + 1, ttl=m["ttl"], snapshot_every=m["every"],
+                                           keyspace=m["chunk_rows"])
+                if cut > 0:
+                    svc.retire_below(cut)
+                    evictions.append((i + 1, cut))
+                    thr[:i + 1] = np.maximum(thr[:i + 1], cut)
+                svc.flush()
+                (state, stats), n_tensors = unchanged(f"mesh service snapshot {i + 1} rank {rank}",
+                                                      svc._agg._es, svc.snapshot)
+                whole = gb.gather_state(state, mesh)
+                n = (i + 1) * m["chunk_rows"]
+                live = keys[:n] >= np.repeat(thr[:i + 1], m["chunk_rows"])
+                if rank == 0:
+                    check_relation(f"mesh service snapshot after {i + 1} chunks",
+                                   *state_relation(whole),
+                                   bincount_oracle(keys[:n][live], vals[:n][live]), exact=False)
+                snaps.append(dict(chunks=i + 1, engine_tensors_unchanged=n_tensors,
+                                  rows_retired=stats.rows_retired,
+                                  rows_exchanged=stats.rows_exchanged))
+            state, stats = svc.close()
+            whole = gb.gather_state(state, mesh)
+            live = keys >= np.repeat(thr, m["chunk_rows"])
+            if rank == 0:
+                check_relation("mesh service close", *state_relation(whole),
+                               bincount_oracle(keys[live], vals[live]), exact=False)
+            if not evictions or stats.rows_retired <= 0:
+                raise SystemExit(f"FAIL mesh service: nothing was retired ({evictions})")
+            return None, dict(snapshots=snaps, evictions=evictions, stats=stats.as_dict(),
+                              metrics=svc.metrics.summary())
+
+        _mesh_part(report, "mesh service", rank, mesh, AGG_KERNELS, part_service)
+    if "d" in parts:
+        # d) spill parity: 2^20 SF-10 rows at SPILL_CFG on the card and on CPU
+        # ranks over the same gloo group, and the ranks' one-device runs
+        n = 1 << 20
+        spill_cfg = ExecConfig(**SPILL_CFG)
+        keys = sharding.local_slice(np.load(d / "orderkey.npy", mmap_mode="r")[:n], mesh)
+        qty = sharding.local_slice(np.load(d / "quantity.npy", mmap_mode="r")[:n], mesh)
+        cpu_mesh = sharding.data_mesh("data", device="cpu")
+
+        def part_d():
+            st, stats = pipeline.insort_aggregate_device(keys, qty, spill_cfg, output_estimate=n,
+                                                         mesh=mesh, device=dev)
+            return (st, stats), dict(stats=stats.as_dict())
+
+        st, stats = _mesh_part(report, "mesh spill parity", rank, mesh, AGG_KERNELS, part_d)
+        st_cpu, stats_cpu = pipeline.insort_aggregate_device(keys, qty, spill_cfg,
+                                                             output_estimate=n, mesh=cpu_mesh,
+                                                             device="cpu")
+        got, want = state_to_numpy(st), state_to_numpy(st_cpu)
+        for f in got:
+            check_equal(f"mesh spill parity rank {rank} {f}", got[f], want[f])
+        if stats.as_dict() != stats_cpu.as_dict():
+            raise SystemExit(f"FAIL mesh spill parity rank {rank}: SpillStats differ\n"
+                             f"{stats.as_dict()}\n{stats_cpu.as_dict()}")
+        if stats.total_spill_rows == 0 or stats.rows_spilled_merge == 0:
+            raise SystemExit(f"FAIL mesh spill parity: the input did not spill: {stats}")
+        local = pipeline.insort_aggregate_device(keys, qty, spill_cfg, output_estimate=n,
+                                                 device=dev)[1]
+        report["mesh spill parity"]["local_stats"] = local.as_dict()
+    if rank == 0:  # rank 0's captured inputs against the plain versions
+        before = dict(MAX_ERR)
+        for path in list(CAPTURED):
+            settle(path)
+        report["max_err"] = {k: v for k, v in MAX_ERR.items() if v != before.get(k)}
+        report["checked_shapes"] = {
+            p: {k: [list(key) + [calls] for key, (calls, _) in sigs.items()]
+                for k, sigs in kinds.items() if sigs} for p, kinds in CAPTURED.items()}
+    (d / f"report_{tag}_{rank}.json").write_text(json.dumps(report))
+
+
+def _spawn_mesh(run_dir: Path, world: int, backend: str, parts: str) -> list[dict]:
+    import torch.multiprocessing as mp
+
+    tag = f"{backend}{world}"
+    rdv = run_dir / f"rendezvous_{tag}"
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(world, str(rdv), str(run_dir), backend, parts),
+                       nprocs=world, start_method="spawn")
+    log(f"phase 13: {world} {backend} ranks ran parts {parts} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [json.loads((run_dir / f"report_{tag}_{r}.json").read_text()) for r in range(world)]
+
+
+def _same_on_ranks(name: str, values: list) -> None:
+    if any(v != values[0] for v in values[1:]):
+        raise SystemExit(f"FAIL {name}: the ranks disagree: {values}")
+
+
+def check_mesh_aggregate(run_dir: Path, reports: list[dict], q18, n_rows: int) -> dict:
+    """Part a: the ranks' shards, EMPTY dropped and concatenated in rank
+    order, equal the oracle exactly; rank r's keys all lie below rank
+    r+1's; every rank reports the same SpillStats; fewer rows crossed the
+    wire than the input holds."""
+    world, tag = len(reports), f"{reports[0]['backend']}{len(reports)}"
+    path = f"mesh aggregate {tag}"
+    shards = [np.load(run_dir / f"a_{tag}_{r}.npz") for r in range(world)]
+    for r, sh in enumerate(shards):
+        k = sh["keys"]
+        if k.size > 1 and not bool(np.all(k[1:] > k[:-1])):
+            raise SystemExit(f"FAIL {path}: rank {r}'s keys are not sorted and unique")
+        if r and k.size and shards[r - 1]["keys"].size and k[0] <= shards[r - 1]["keys"][-1]:
+            raise SystemExit(f"FAIL {path}: rank {r}'s keys do not all lie above rank {r - 1}'s")
+    uk, cnt, sums = q18
+    check_equal(f"{path} keys", np.concatenate([sh["keys"] for sh in shards]), uk)
+    check_equal(f"{path} counts", np.concatenate([sh["count"] for sh in shards]), cnt)
+    check_equal(f"{path} sums", np.concatenate([sh["sum"] for sh in shards]), sums)
+    stats = [rep[path]["stats"] for rep in reports]
+    _same_on_ranks(f"{path} SpillStats", stats)
+    if not 0 < stats[0]["rows_exchanged"] < n_rows:
+        raise SystemExit(f"FAIL {path}: rows_exchanged {stats[0]['rows_exchanged']}")
+    return dict(rows=n_rows, groups=int(uk.size), shard_groups=[int(sh["keys"].size)
+                                                                 for sh in shards],
+                **{k: stats[0][k] for k in EXCHANGE_FIELDS}, stats=stats[0],
+                ranks=[{k: rep[path][k] for k in ("wall_s", "host_syncs", "collectives",
+                                                  "max_memory_allocated", "launches")}
+                       for rep in reports])
+
+
+def mesh_path(dev, rows, q18, by_path: dict) -> dict:
+    """Phase 13: the mesh paths, one process a rank (parts a–e)."""
+    import os
+
+    import torch
+
+    run_dir = ROOT / "build" / "mesh_phase"
+    if run_dir.exists():
+        for p in run_dir.iterdir():
+            p.unlink()
+    run_dir.mkdir(parents=True, exist_ok=True)
+    n_rows = rows["orderkey"].size
+    np.save(run_dir / "orderkey.npy", rows["orderkey"])
+    np.save(run_dir / "quantity.npy", rows["quantity"])
+    for name in ("okey", "price", "w_keys", "c_keys"):
+        np.save(run_dir / f"{name}.npy", JOIN_DATA[name])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    reports = _spawn_mesh(run_dir, MESH_WORLD, "gloo", "abcd")
+    out["a"] = check_mesh_aggregate(run_dir, reports, q18, n_rows)
+    log(f"phase 13a, mesh aggregate ok: {json.dumps(out['a'])}")
+
+    # b) the mesh joins equal phase 6's one-device joins
+    b = np.load(run_dir / "b.npz")
+    for col, want in JOIN_DATA["inner"].items():
+        got = b[f"inner_{col}"]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise SystemExit(f"FAIL mesh merge_join {col}: differs from phase 6's join")
+    check_equal("mesh semi join", b["semi"], JOIN_DATA["semi"])
+    check_equal("mesh anti join", b["anti"], JOIN_DATA["anti"])
+    _same_on_ranks("mesh merge_join stats", [rep["mesh merge_join"]["stats"] for rep in reports])
+    out["b"] = dict(inner_rows=int(JOIN_DATA["inner"]["orderkey"].size),
+                    anti_rows=int(b["anti"].size), plan_mesh=reports[0]["mesh merge_join"][
+                        "plan_mesh"], ranks=[{k: rep["mesh merge_join"][k] for k in (
+                            "wall_s", "gather_s", "host_syncs", "collectives",
+                            "max_memory_allocated", "launches")} for rep in reports])
+    log(f"phase 13b, mesh merge_join ok: {json.dumps(out['b'])}")
+
+    # c) checked inside rank 0 against NumPy; the ranks agree on the stats
+    for path in ("mesh stream", "mesh service"):
+        _same_on_ranks(f"{path} stats", [rep[path]["stats"] for rep in reports])
+        out[path] = dict(reports[0][path], ranks=[{k: rep[path][k] for k in (
+            "wall_s", "host_syncs", "collectives", "max_memory_allocated", "launches")}
+            for rep in reports])
+    log(f"phase 13c, mesh stream and service ok: {json.dumps(out['mesh stream'])} "
+        f"{json.dumps(out['mesh service'])}")
+
+    # d) the mesh's stats = the ranks' one-device runs reduced, but for the exchange's
+    from repro_torch.core.types import SpillStats
+
+    path = "mesh spill parity"
+    stats = [rep[path]["stats"] for rep in reports]
+    _same_on_ranks(f"{path} stats", stats)
+    local = [SpillStats(**{k: v for k, v in rep[path]["local_stats"].items()
+                           if k != "total_spill_rows"}) for rep in reports]
+    want = SpillStats.reduce_shards(local).as_dict()
+    got = dict(stats[0])
+    for k in EXCHANGE_FIELDS:
+        got.pop(k), want.pop(k)
+    if got != want:
+        raise SystemExit(f"FAIL {path}: the mesh's SpillStats are not the ranks' one-device "
+                         f"stats reduced:\n{got}\n{want}")
+    out["d"] = dict(stats=stats[0], ranks=[{k: rep[path][k] for k in (
+        "wall_s", "host_syncs", "collectives", "launches")} for rep in reports])
+    log(f"phase 13d, mesh spill parity ok (card = CPU ranks = reduced one-device runs): "
+        f"{json.dumps(out['d'])}")
+
+    for path in ("mesh aggregate gloo4", "mesh merge_join", "mesh stream", "mesh service",
+                 "mesh spill parity"):
+        by_path[path] = {k: sum(rep[path]["launches"][k] for rep in reports)
+                         for k in reports[0][path]["launches"]}
+    for name, err in reports[0].get("max_err", {}).items():
+        MAX_ERR[name] = max(MAX_ERR.get(name, 0.0), err)
+    for path, kinds in reports[0].get("checked_shapes", {}).items():  # rank 0's checks
+        CAPTURED[f"{path} rank 0"] = {k: {tuple(tuple(x) if isinstance(x, list) else x
+                                                for x in sig[:-1]): [sig[-1], None]
+                                          for sig in sigs} for k, sigs in kinds.items()}
+
+    if torch.cuda.device_count() >= 2:  # part a on NCCL, one rank a card
+        nreports = _spawn_mesh(run_dir, 2, "nccl", "a")
+        out["a_nccl"] = check_mesh_aggregate(run_dir, nreports, q18, n_rows)
+        log(f"phase 13a, NCCL world 2 ok: {json.dumps(out['a_nccl'])}")
+    else:
+        out["a_nccl"] = "not run: one card (NCCL needs a card a rank)"
+        log("phase 13a: NCCL unverified here: one card")
+
+    # e) the launcher, its ranks spawned by itself
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for label, extra in (("2^26 rows, Zipf 1.2", MESH_SHARD_AGG + ("--check",)),
+                         ("--smoke", ("--smoke",))):
+        cmd = [sys.executable, "-m", "repro_torch.launch.shard_agg", "--world",
+               str(MESH_WORLD), "--dist-backend", "gloo", *extra]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        report = dict(line.split(None, 1) for line in lines[1:] if line.startswith("  "))
+        if r.returncode != 0 or report.get("oracle") != "equal":
+            raise SystemExit(f"FAIL shard_agg {label}: rc {r.returncode}\n{r.stdout}\n"
+                             f"{r.stderr[-4000:]}")
+        out[f"e {label}"] = dict(wall_s=time.perf_counter() - t0, head=lines[0], report=report)
+        log(f"phase 13e, shard_agg {label} ok: {json.dumps(out[f'e {label}'])}")
+    return out
+
+
 def kernel_records(by_path: dict) -> list[dict]:
     """The kernels' JSON records: each kernel timed and counted on its own
     path, the aggregate's (phase 3) for the aggregate kernels, the merge
@@ -2210,6 +2600,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     service_path(dev, rows, by_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_path(dev, rows, q18, by_path)
     kernels = kernel_records(by_path)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -38,13 +38,6 @@ def plan_pre_merge_levels(output_estimate: int, cfg: ExecConfig, num_runs: int) 
     return min(levels, max_useful)
 
 
-def _no_mesh(mesh, mesh_axis) -> None:
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError(
-            "mesh-sharded aggregation is not ported yet (ROADMAP Queue 1 item 11, "
-            "distributed aggregation)")
-
-
 def insort_aggregate(keys, payload=None, cfg: ExecConfig | None = None, *,
                      output_estimate: int | None = None, early_aggregation: bool = True,
                      use_wide_merge: bool = True, run_policy: str = "rs",
@@ -64,11 +57,18 @@ def insort_aggregate(keys, payload=None, cfg: ExecConfig | None = None, *,
     ``pipeline="device"`` (the default here) runs the device pipeline of
     :mod:`repro_torch.core.pipeline`; ``"host"`` the reference loop with
     the paper's per-level accounting.  Plans the device pipeline cannot
-    express (``use_wide_merge=False``) always take the host loop."""
+    express (``use_wide_merge=False``) always take the host loop.
+
+    ``mesh`` shards the device pipeline over the ranks of a
+    :class:`repro_torch.distributed.sharding.Mesh` (every rank passes its
+    own rows; per-rank run generation, then the key-range exchange); it
+    needs ``pipeline="device"`` with the wide merge."""
     cfg = cfg or ExecConfig()
     if pipeline not in ("host", "device"):
         raise ValueError(f"unknown pipeline {pipeline!r}; expected host|device")
-    _no_mesh(mesh, mesh_axis)
+    if mesh is not None and not (pipeline == "device" and use_wide_merge):
+        raise ValueError("mesh-sharded aggregation requires pipeline='device' with the wide "
+                         "merge enabled (the host loop is single-device)")
     dev = resolve_device(device)
     backend = dispatch.resolve_backend_name(backend, dev)
     if pipeline == "device" and use_wide_merge:
@@ -80,7 +80,7 @@ def insort_aggregate(keys, payload=None, cfg: ExecConfig | None = None, *,
             policy = "inrun_dedup"
         return pipeline_mod.insort_aggregate_device(
             keys, payload, cfg, policy=policy, backend=backend, widths=widths,
-            output_estimate=output_estimate, device=dev,
+            output_estimate=output_estimate, mesh=mesh, mesh_axis=mesh_axis, device=dev,
         )
     keys = canon_keys(keys)
     if early_aggregation and run_policy == "rs":

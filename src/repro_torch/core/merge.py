@@ -71,6 +71,17 @@ def stack_runs(runs: list[Run], page_rows: int) -> RunStore:
     return RunStore(state=state, lens=lens)
 
 
+def fragments_to_store(recv: AggState, world: int, quota: int):
+    """``world`` concatenated sorted fragments of ``quota`` rows each (an
+    exchange's receive buffer, fields ``(world·quota, ...)``) as the
+    stacked run store the wide merge takes: fields reshaped to ``(world,
+    quota, ...)`` (views) and each fragment's valid rows (fragments are
+    left-packed and EMPTY-padded), a device tensor.  ``quota`` must be a
+    multiple of the merge's page."""
+    store = recv.map(lambda x: x.reshape((world, quota) + tuple(x.shape[1:])))
+    return store, store.valid().sum(1)
+
+
 def _page_of(store: AggState, r: torch.Tensor, start: torch.Tensor, page_rows: int) -> AggState:
     """Gather one page (P rows) of run ``r`` — device scalars — into the
     shared input buffer."""

@@ -76,6 +76,15 @@ def _gather_rows(state: AggState, idx: torch.Tensor, live: torch.Tensor) -> AggS
     )
 
 
+def compact_state(state: AggState) -> AggState:
+    """Close interior EMPTY gaps with one compaction gather.  A mesh
+    relation gathered from its ranks is sorted by (owner, key) but
+    EMPTY-padded rank by rank; its valid keys still ascend, so moving them
+    to the front restores the one-device layout without a sort."""
+    src, live = compact_indices(state.valid())
+    return _gather_rows(state, src, live)
+
+
 def merge_join(a: AggState, b: AggState, *, how: str = "inner",
                backend: str = "auto") -> tuple[AggState, AggState | None]:
     """Merge join of two sorted, duplicate-free, EMPTY-padded states.

@@ -77,7 +77,10 @@ def group_by(keys, payload=None, cfg: ExecConfig | None = None, *, algorithm: st
     ``keys`` may instead be an iterator of chunks — key arrays, or
     ``(keys, payload)`` pairs — absorbed through the streamed pipeline
     (in-sort on the device pipeline only; pass ``payload=None``).  ``mesh``
-    is not ported (ROADMAP Queue 1 item 11)."""
+    (a :class:`repro_torch.distributed.sharding.Mesh`) shards the in-sort
+    device pipeline over its ranks: a one-shot input is the rank's own
+    rows, a chunk stream the global chunks, of which each rank keeps its
+    slice."""
     cfg = cfg or ExecConfig()
     if isinstance(keys, Iterator):
         if algorithm not in ("auto", "insort") or pipeline != "device":

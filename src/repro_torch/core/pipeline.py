@@ -37,6 +37,7 @@ from repro_torch.core.types import (
     FIELDS,
     AggState,
     DeviceSpillStats,
+    ExchangeOverflowError,
     ExecConfig,
     SpillStats,
     MergeOverflowError,
@@ -495,17 +496,79 @@ def generate_runs_device(keys, payload=None, cfg: ExecConfig | None = None, *,
     )
 
 
+def _mesh_pad(keys: np.ndarray, payload, n_loc: int):
+    """EMPTY/zero-pad a rank's host rows to the mesh's ``n_loc`` (the
+    reference pads the global input to ``world·n_loc`` rows, so the last
+    shards carry the EMPTY rows)."""
+    short = n_loc - keys.shape[0]
+    if short <= 0:
+        return keys, payload
+    keys = np.concatenate([keys, np.full(short, np.iinfo(keys.dtype).max, keys.dtype)])
+    if payload is not None:
+        payload = np.concatenate([payload, np.zeros((short,) + payload.shape[1:],
+                                                    payload.dtype)])
+    return keys, payload
+
+
+def _mesh_exchange(out: AggState, dstats: DeviceSpillStats, mesh, *, backend: str,
+                   quota: int | None, page_rows: int):
+    """The mesh tail of every pipeline: the key-range exchange and the
+    per-owner merge of a rank's merge output, its accounting into the
+    stats, and the stats reduced over the ranks (no readback)."""
+    from repro_torch.distributed import groupby as gb_mod  # lazy: gb imports core
+
+    merged, ex = gb_mod.exchange_and_merge(out, mesh, backend=backend, quota=quota,
+                                           page_rows=page_rows)
+    dstats = dataclasses.replace(
+        dstats, merge_dropped_rows=torch.as_tensor(dstats.merge_dropped_rows,
+                                                   device=out.device) | ex.merge_dropped,
+        rows_exchanged=ex.rows_sent, exchange_dropped=ex.send_dropped,
+        exchange_quota=ex.quota, exchange_max_fill=ex.max_fill, exchange_capacity=ex.capacity)
+    return merged, dstats.cross_shard(mesh)
+
+
+def _mesh_rows(keys: np.ndarray, mesh) -> int:
+    """The rows every rank runs over: the most any rank was given (one
+    collective of a host int), so that every rank plans the same geometry
+    and exchange quota."""
+    from repro_torch.distributed import sharding  # lazy: sharding imports core
+
+    return sharding.host_all_reduce(mesh, [keys.shape[0]], "max")[0]
+
+
 def aggregate_device(keys, payload=None, cfg: ExecConfig | None = None, *,
                      policy: str = "rs", backend: str = "auto", widths=None,
-                     output_estimate: int | None = None, device="cuda") -> tuple[AggState, DeviceSpillStats]:
+                     output_estimate: int | None = None, mesh=None,
+                     mesh_axis: str | None = None, exchange_quota: int | None = None,
+                     device="cuda") -> tuple[AggState, DeviceSpillStats]:
     """Run generation + pre-merge levels + wide merge over host input
     (``keys`` uint32/uint64, ``payload`` (N, V) float) on ``device``.
     Output is key-sorted, duplicate-free, EMPTY-padded to the batched input
     capacity; ``output_estimate`` fixes the number of pre-merge levels and
-    never changes the answer."""
+    never changes the answer.
+
+    ``mesh`` (a :class:`repro_torch.distributed.sharding.Mesh`) shards the
+    pipeline: every rank calls this with its own rows (for the reference's
+    sharding of a global input, :func:`~repro_torch.distributed.sharding.
+    local_slice`; ranks given fewer rows than the most pad with EMPTY),
+    runs run generation, the pre-merge levels (planned from its own
+    ``n_loc``) and the wide merge over them, then a sampled key-range
+    ``all_to_all`` exchanges the sorted, duplicate-free outputs at a
+    capacity-bounded per-peer quota (``exchange_quota`` overrides it) and
+    each range owner streams its fragments through the wide merge.  The
+    rank's result is its key range, sorted and EMPTY-padded; the ranks'
+    results are sorted by rank.  The stats are reduced over the ranks
+    (:meth:`DeviceSpillStats.cross_shard`), the same on every rank."""
     cfg = cfg or ExecConfig()
     _check_policy(policy)
     keys, payload, widths, dev, backend = _prepare(keys, payload, widths, device, backend)
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+
+        sharding.resolve_mesh_axis(mesh, mesh_axis)
+        sharding.check_mesh_device(mesh, dev)
+        n_loc = _mesh_rows(keys, mesh)
+        keys, payload = _mesh_pad(keys, payload, n_loc)
     if keys.shape[0] == 0:
         width = 0 if payload is None else payload.shape[1]
         return (empty_state(0, width, key_dtype=keys.dtype, widths=widths, device=dev),
@@ -513,26 +576,51 @@ def aggregate_device(keys, payload=None, cfg: ExecConfig | None = None, *,
     from repro_torch.core.insort import plan_pre_merge_levels  # lazy: avoids a cycle
 
     est = cfg.memory_rows * cfg.fanin if output_estimate is None else output_estimate
+    # the §4.3 plan is a rank's: from its static run-slot bound over its rows
     r_static = _static_run_slots(policy, keys.shape[0], cfg.memory_rows, cfg.batch_rows)
     pre = plan_pre_merge_levels(est, cfg, r_static)
     pt = None if payload is None else torch.from_numpy(payload).to(dev)
-    return _pipeline_body(
+    out, dstats = _pipeline_body(
         keys_to_torch(keys, dev), pt, key_dtype=keys.dtype, policy=policy,
         memory_rows=cfg.memory_rows, batch_rows=cfg.batch_rows, page_rows=cfg.page_rows,
         index_rows=cfg.memory_rows, fanin=cfg.fanin, premerge_levels=pre,
         backend=backend, widths=widths,
     )
+    if mesh is None:
+        return out, dstats
+    return _mesh_exchange(out, dstats, mesh, backend=backend, quota=exchange_quota,
+                          page_rows=cfg.page_rows)
 
 
 def insort_aggregate_device(keys, payload=None, cfg: ExecConfig | None = None, *,
                             policy: str = "rs", backend: str = "auto", widths=None,
-                            output_estimate: int | None = None,
+                            output_estimate: int | None = None, mesh=None,
+                            mesh_axis: str | None = None, exchange_quota: int | None = None,
                             device="cuda") -> tuple[AggState, SpillStats]:
-    """:func:`aggregate_device` + the readback of the spill stats."""
-    state, dstats = aggregate_device(
-        keys, payload, cfg, policy=policy, backend=backend, widths=widths,
-        output_estimate=output_estimate, device=device)
-    return state, dstats.finalize()
+    """:func:`aggregate_device` + the readback of the spill stats.
+
+    On a mesh, an exchange whose quota proved too small for the data's
+    skew retries once at the next pow2 quota (capped at the lossless
+    per-rank capacity) with a warning: the stats' readback, replicated on
+    every rank, is the decision point, so every rank retries together.  A
+    second overflow raises :class:`ExchangeOverflowError`."""
+    kw = dict(policy=policy, backend=backend, widths=widths, output_estimate=output_estimate,
+              mesh=mesh, mesh_axis=mesh_axis, device=device)
+    state, dstats = aggregate_device(keys, payload, cfg, exchange_quota=exchange_quota, **kw)
+    try:
+        return state, dstats.finalize()
+    except ExchangeOverflowError as e:
+        if mesh is None:
+            raise  # impossible without an exchange; do not mask a bug
+        from repro_torch.distributed import groupby as gb_mod  # lazy: gb imports core
+
+        quota2 = gb_mod.next_exchange_quota(e.quota, e.capacity)
+        if quota2 is None:
+            raise  # already at the lossless ceiling: a retry cannot help
+        _log.warning("mesh exchange overflowed its per-peer quota=%d (fullest segment %d "
+                     "rows); retrying once at quota=%d", e.quota, e.max_fill, quota2)
+        state, dstats = aggregate_device(keys, payload, cfg, exchange_quota=quota2, **kw)
+        return state, dataclasses.replace(dstats.finalize(), exchange_retries=1)
 
 
 # ---------------------------------------------------------------------------
@@ -707,8 +795,8 @@ class _Stager:
         self.buffers: list = [None, None]  # (pinned keys, pinned payload, event)
         self.turn = 0
 
-    def put(self, keys: torch.Tensor, payload: torch.Tensor, rows: int,
-            rows_padded: int) -> StagedChunk:
+    def put(self, keys: torch.Tensor, payload: torch.Tensor, rows: int, rows_padded: int,
+            local_rows: int) -> StagedChunk:
         i, self.turn = self.turn, self.turn ^ 1
         n, w = payload.shape
         buf = self.buffers[i]
@@ -729,7 +817,8 @@ class _Stager:
         dk.record_stream(compute)
         dp.record_stream(compute)
         self.buffers[i] = (buf[0], buf[1], event)
-        return StagedChunk(keys=dk, payload=dp, rows=rows, rows_padded=rows_padded, event=event)
+        return StagedChunk(keys=dk, payload=dp, rows=rows, rows_padded=rows_padded,
+                           local_rows=local_rows, event=event)
 
 
 class StreamingAggregator:
@@ -770,7 +859,20 @@ class StreamingAggregator:
     retirement of expired key ranges.
 
     ``device`` defaults to ``"cuda"`` and raises without a card; on a card
-    the kernels launch or the call raises.  ``mesh=`` is not ported."""
+    the kernels launch or the call raises.
+
+    ``mesh`` (a :class:`repro_torch.distributed.sharding.Mesh`) shards the
+    stream as the reference's ``device_put(NamedSharding(P(axis)))`` does:
+    every rank stages the same global chunks, pads each to ``world·t``
+    batches (``t`` the pow2 bucket of ``ceil(n / world)`` rows' batches)
+    and keeps batches ``[rank·t, (rank+1)·t)``; each rank's engine absorbs
+    its slice, the slot bound is the rank's (``rows_padded // world``), and
+    finalize and snapshot end with the key-range exchange and per-owner
+    merge of the one-shot mesh pipeline (a snapshot on its copy of the run
+    store, so the live engine stays as it was), its stats reduced over the
+    ranks.  Every rank must make every call.  ``policy="adaptive"`` and
+    ``governor=`` do not compose with a mesh and raise, as in the
+    reference."""
 
     def __init__(self, cfg: ExecConfig | None = None, *, policy: str = "rs",
                  key_dtype=np.uint32, width: int = 0, widths=None, backend: str = "auto",
@@ -780,13 +882,19 @@ class StreamingAggregator:
         cfg = cfg or ExecConfig()
         if policy not in STREAM_POLICIES:
             raise ValueError(f"unknown policy {policy!r}; expected one of {STREAM_POLICIES}")
-        if mesh is not None or mesh_axis is not None:
-            raise NotImplementedError(
-                "mesh-sharded streams are not ported yet (ROADMAP Queue 1 item 11, "
-                "distributed aggregation)")
         self.cfg = cfg
         self.policy = policy
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.world = 1
+        if mesh is not None:
+            from repro_torch.distributed import sharding  # lazy: sharding imports core
+
+            sharding.resolve_mesh_axis(mesh, mesh_axis)
+            sharding.check_mesh_device(mesh, self.device)
+            self.world = mesh.world
+        elif mesh_axis is not None:
+            raise ValueError("mesh_axis= was passed without mesh=")
         self.backend = dispatch.resolve_backend_name(backend, self.device)
         self.key_dtype = np.dtype(key_dtype)
         if self.key_dtype not in (np.dtype(np.uint32), np.dtype(np.uint64)):
@@ -820,6 +928,9 @@ class StreamingAggregator:
         self._pending_obs = None  # the boundary observation awaiting harvest
         self._last_obs_vec = None  # the newest boundary's observation
         if policy == "adaptive":
+            if mesh is not None:
+                raise ValueError("policy='adaptive' does not compose with mesh= yet — pick a "
+                                 "fixed policy for sharded streams")
             if cfg.memory_rows % cfg.batch_rows:
                 raise ValueError(
                     "policy='adaptive' needs memory_rows divisible by batch_rows (chunks "
@@ -835,6 +946,12 @@ class StreamingAggregator:
                 self._governor = adaptive_mod.PolicyGovernor(cfg, config=governor)
             self._arm = self._governor.start_arm(output_estimate=output_estimate)
         else:
+            if governor is not None and mesh is not None:
+                raise ValueError(
+                    "governor= was passed on a mesh= stream, but the adaptive governor does "
+                    "not compose with mesh= yet (it needs a cross-shard observation reduce). "
+                    f"It would have silently run the fixed policy {policy!r}; pick a fixed "
+                    "policy and drop governor=, or run unsharded with policy='adaptive'")
             if governor is not None:
                 raise ValueError(
                     f"governor= was passed with fixed policy {policy!r}; it would have been "
@@ -848,8 +965,11 @@ class StreamingAggregator:
     def _prep(self, keys, payload):
         """Canonical host keys and payload, EMPTY-padded to whole staging
         units (in the unsigned domain: the dtype's all-ones).  Returns
-        ``(keys, payload, rows, rows_padded)``; ``rows_padded`` is the
-        reference's pow2-bucketed batch geometry, which sizes the slots."""
+        ``(keys, payload, rows, rows_padded, local_rows)``; ``rows_padded``
+        is the reference's pow2-bucketed batch geometry, which sizes the
+        slots.  On a mesh the keys and payload are this rank's slice of the
+        chunk padded to ``world·t`` batches, and ``local_rows`` its valid
+        rows."""
         keys = canon_keys(keys)
         if keys.dtype != self.key_dtype:
             raise TypeError(f"chunk key dtype {keys.dtype} != aggregator key_dtype "
@@ -864,13 +984,21 @@ class StreamingAggregator:
         if payload.shape != (n, self.width):
             raise ValueError(f"chunk payload shape {payload.shape} != ({n}, "
                              f"width={self.width})")
-        n_stage = -(-n // self._chunk) * self._chunk
-        if n_stage > n:
-            keys = np.concatenate([keys, np.full(n_stage - n, np.iinfo(keys.dtype).max,
+        local = n
+        n_pad = _num_batches(n, self._chunk) * self._chunk
+        if self.mesh is not None:
+            span = _num_batches(-(-n // self.world), self._chunk) * self._chunk
+            n_pad = self.world * span
+            r0 = self.mesh.rank * span
+            keys, payload = keys[r0:r0 + span], payload[r0:r0 + span]
+            local = keys.shape[0]
+        n_stage = -(-local // self._chunk) * self._chunk
+        if n_stage > local:
+            keys = np.concatenate([keys, np.full(n_stage - local, np.iinfo(keys.dtype).max,
                                                  keys.dtype)])
-            payload = np.concatenate([payload, np.zeros((n_stage - n, self.width),
+            payload = np.concatenate([payload, np.zeros((n_stage - local, self.width),
                                                         np.float32)])
-        return keys, payload, n, _num_batches(n, self._chunk) * self._chunk
+        return keys, payload, n, n_pad, local
 
     def stage(self, keys, payload=None) -> StagedChunk | None:
         """Start the host→device copy of one chunk (a plain conversion on
@@ -879,22 +1007,23 @@ class StreamingAggregator:
         absorb.  Empty chunks return None."""
         if np.asarray(keys).shape[0] == 0:
             return None
-        keys, payload, n, n_pad = self._prep(keys, payload)
+        keys, payload, n, n_pad, local = self._prep(keys, payload)
         kt, pt = keys_to_torch(keys, "cpu"), torch.from_numpy(np.ascontiguousarray(payload))
         if self._stager is None:
             return StagedChunk(keys=kt.to(self.device), payload=pt.to(self.device), rows=n,
-                               rows_padded=n_pad)
-        return self._stager.put(kt, pt, n, n_pad)
+                               rows_padded=n_pad, local_rows=local)
+        return self._stager.put(kt, pt, n, n_pad, local)
 
     # -- absorbing -------------------------------------------------------
 
     def _bound(self, rows_padded: int) -> int:
-        return _stream_run_slots(self.policy, rows_padded, self.cfg.memory_rows)
+        return _stream_run_slots(self.policy, rows_padded // self.world, self.cfg.memory_rows)
 
     def _local_slots(self, chunk_padded: int) -> int:
         """Run slots one chunk can reach: its own bound and the open slot,
         for the current arm of an adaptive stream."""
-        return _stream_run_slots(self._arm, chunk_padded, self.cfg.memory_rows) + 1
+        return _stream_run_slots(self._arm, chunk_padded // self.world,
+                                 self.cfg.memory_rows) + 1
 
     def _bound_total(self, rows_since_baseline: int) -> int:
         """Slot bound from the eviction or switch baseline: the live runs
@@ -931,7 +1060,7 @@ class StreamingAggregator:
         if staged.event is not None:
             torch.cuda.current_stream(self.device).wait_event(staged.event)
         chunk = _engine_geometry(self._arm, cfg.memory_rows, cfg.batch_rows, cfg.page_rows)[0]
-        for b in range(-(-staged.rows // chunk)):
+        for b in range(-(-staged.local_rows // chunk)):
             rows = slice(b * chunk, (b + 1) * chunk)
             _engine_step(self._es, staged.keys[rows], staged.payload[rows], policy=self._arm,
                          M=cfg.memory_rows, B=cfg.batch_rows, backend=self.backend,
@@ -1047,6 +1176,24 @@ class StreamingAggregator:
         es, self._es = self._es, None
         return self._run_merge(es, pre, out_cap, trim)
 
+    def _retry_exchange(self, entry_point: str, err: ExchangeOverflowError, es, pre: int,
+                        out_cap: int, trim: int, copy_store: bool):
+        """The mesh exchange's quota was too small for the data's skew: run
+        the merge and the exchange once more at the next pow2 quota, capped
+        at the lossless per-rank output capacity.  A second overflow
+        raises."""
+        from repro_torch.distributed import groupby as gb_mod  # lazy: gb imports core
+
+        quota2 = gb_mod.next_exchange_quota(err.quota, out_cap)
+        if quota2 is None:
+            raise err  # already at the lossless ceiling
+        _log.warning("%s exchange overflowed its per-peer quota=%d (fullest segment %d rows); "
+                     "retrying once at quota=%d", entry_point, err.quota, err.max_fill, quota2)
+        state, dstats = self._run_merge(es, pre, out_cap, trim, copy_store=copy_store,
+                                        exchange_quota=quota2)
+        stats = dstats.finalize(entry_point=entry_point)
+        return state, dataclasses.replace(stats, exchange_retries=stats.exchange_retries + 1)
+
     def _retry_capacity(self, entry_point: str, err: Exception, es, pre: int, out_cap: int,
                         trim: int, copy_store: bool):
         """The wide merge dropped rows: run the merge ONCE more at the next
@@ -1073,6 +1220,8 @@ class StreamingAggregator:
         state, dstats = self._run_merge(es, pre, out_cap, trim)
         try:
             stats = dstats.finalize()
+        except ExchangeOverflowError as e:
+            state, stats = self._retry_exchange("finalize", e, es, pre, out_cap, trim, False)
         except MergeOverflowError as e:
             # the drain wrote the same rows into the same slots: a re-run reads them again
             state, stats = self._retry_capacity("finalize", e, es, pre, out_cap, trim, False)
@@ -1088,21 +1237,29 @@ class StreamingAggregator:
 
         est = (self.cfg.memory_rows * self.cfg.fanin if self.output_estimate is None
                else self.output_estimate)
+        rows_loc = self.rows_padded // self.world
         r_static = self._bound_total(self._rows_since_evict)
         pre = plan_pre_merge_levels(est, self.cfg, r_static)
         if bucketed:
-            out_cap = self.output_rows or _pow2_ceil(max(1, self.rows_padded))
+            out_cap = self.output_rows or _pow2_ceil(max(1, rows_loc))
             trim = min(_pow2_ceil(r_static), self._R)
         else:
-            out_cap = max(1, self.output_rows or self.rows_padded)
+            out_cap = max(1, self.output_rows or rows_loc)
             trim = min(r_static, self._R)
         return pre, out_cap, trim
 
-    def _run_merge(self, es, pre: int, out_cap: int, trim: int, copy_store: bool = False):
-        return _finalize_stream(
+    def _run_merge(self, es, pre: int, out_cap: int, trim: int, copy_store: bool = False,
+                   exchange_quota: int | None = None):
+        """Drain + merge of ``es`` (and on a mesh the exchange, at
+        ``exchange_quota`` when given: the retry's)."""
+        out, dstats = _finalize_stream(
             es, self._retired or 0, policy=self._arm, page_rows=self.cfg.page_rows,
             index_rows=self.index_rows, fanin=self.cfg.fanin, premerge_levels=pre,
             backend=self.backend, out_capacity=out_cap, trim=trim, copy_store=copy_store)
+        if self.mesh is None:
+            return out, dstats
+        return _mesh_exchange(out, dstats, self.mesh, backend=self.backend,
+                              quota=exchange_quota, page_rows=self.cfg.page_rows)
 
     def snapshot_device(self) -> tuple[AggState, DeviceSpillStats]:
         """Merge-on-read: the current aggregate without consuming the
@@ -1122,6 +1279,10 @@ class StreamingAggregator:
         state, dstats = self.snapshot_device()
         try:
             stats = dstats.finalize(entry_point="snapshot")
+        except ExchangeOverflowError as e:
+            pre, out_cap, trim = self._merge_plan(bucketed=True)
+            state, stats = self._retry_exchange("snapshot", e, self._es, pre, out_cap, trim,
+                                                True)
         except MergeOverflowError as e:
             pre, out_cap, trim = self._merge_plan(bucketed=True)
             state, stats = self._retry_capacity("snapshot", e, self._es, pre, out_cap, trim,
@@ -1133,7 +1294,10 @@ class StreamingAggregator:
         the live engine (TTL / watermark eviction) and re-anchor the slot
         accounting at the new high-water mark; one readback.  Retired rows
         surface as ``SpillStats.rows_retired`` on every later snapshot and
-        finalize.  Returns the cumulative retired-row count."""
+        finalize.  Returns the cumulative retired-row count.  On a mesh each
+        rank retires from its own engine, the slot accounting re-anchors at
+        the ranks' highest run slot and the count returned is the ranks'
+        sum (two collectives of host ints)."""
         if self._finalized:
             raise RuntimeError("StreamingAggregator already finalized")
         thr = int(threshold)
@@ -1142,14 +1306,27 @@ class StreamingAggregator:
                 f"eviction threshold {threshold!r} out of range for {self.key_dtype} keys "
                 "(must be <= max_key, below the EMPTY sentinel)")
         if self._es is None:  # nothing resident: nothing to retire
-            return self._retired or 0
+            return self._retired_total()
         mapped = int(keys_to_torch(np.asarray([thr], self.key_dtype), "cpu")[0])
         self._retired = (self._retired or 0) + _evict_compact(self._es, mapped)
         slack = {"traditional": 0, "inrun_dedup": 0, "early_agg": 2, "rs": 4,
                  "adaptive": 6}[self.policy]
-        self._base_slots = self._es.ridx + slack
+        ridx = self._es.ridx
+        if self.mesh is not None:
+            from repro_torch.distributed import sharding
+
+            (ridx,) = sharding.host_all_reduce(self.mesh, [ridx], "max")
+        self._base_slots = ridx + slack
         self._rows_since_evict = 0
-        return self._retired
+        return self._retired_total()
+
+    def _retired_total(self) -> int:
+        """The rows eviction retired so far, over every rank of a mesh."""
+        if self.mesh is None:
+            return self._retired or 0
+        from repro_torch.distributed import sharding
+
+        return sharding.host_all_reduce(self.mesh, [self._retired or 0], "sum")[0]
 
 
 def _as_chunk(c):

@@ -12,12 +12,14 @@ runs every algorithm of the reference (the in-sort operator on the device
 pipeline or the host loop, the hash, F1-hash, sort-then-stream and
 in-memory baselines); streamed input (an iterator of column batches) runs
 the in-sort operator on the streamed pipeline, fixed-policy or adaptive.
-The mesh waits in ROADMAP.
+On a mesh (``mesh=``, one process a rank) the in-sort operator and the
+merge join run sharded; a mesh relation holds its rank's shard.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 from collections.abc import Iterator
 from typing import Any, Mapping, Sequence
 
@@ -29,8 +31,11 @@ from repro_torch.core import merge_join as mj_mod
 from repro_torch.core.types import (
     INT64_MIN,
     AggState,
+    ExchangeOverflowError,
     ExecConfig,
     SpillStats,
+    concat_states,
+    empty_like,
     host_ints,
     key_dtype_for_bits,
     keys_to_numpy,
@@ -244,30 +249,83 @@ class AggSpec:
 # ---------------------------------------------------------------------------
 
 
+def _whole(state: AggState, mesh) -> AggState:
+    """A relation's whole state: a mesh relation's shards gathered onto
+    every rank (:func:`repro_torch.distributed.groupby.gather_state`: one
+    readback, two collectives, ``world`` × the largest shard's valid rows
+    received), a one-device relation's state as it is."""
+    if mesh is None:
+        return state
+    from repro_torch.distributed import groupby as gb_mod  # lazy: gb imports core
+
+    return gb_mod.gather_state(state, mesh)
+
+
 @dataclasses.dataclass
 class AggResult:
     """Sorted result relation of :func:`aggregate`: ``state`` is the raw
-    accumulator on the device (keys ascending, EMPTY-padded tail)."""
+    accumulator on the device (keys ascending, EMPTY-padded tail).
+
+    A mesh relation (``mesh`` set, ``plan["mesh"]``) holds this rank's
+    shard: its key range, the ranks' ranges ascending with the rank.
+    :meth:`relation`, :meth:`occupancy`, :meth:`rollup` and a
+    :meth:`merge_join` without ``mesh=`` read the whole relation, as the
+    reference's global array does: they gather the shards over the mesh
+    first, a collective that every rank must call."""
 
     state: AggState
     stats: SpillStats
     by: KeySpec
     aggs: AggSpec
     plan: dict[str, Any]
+    mesh: Any = None
 
     def occupancy(self) -> int:
-        return host_ints(self.state.occupancy())[0]
+        occ = host_ints(self.state.occupancy())[0]
+        if self.mesh is None:
+            return occ
+        from repro_torch.distributed import sharding
+
+        return sharding.host_all_reduce(self.mesh, [occ], "sum")[0]
 
     def relation(self) -> dict[str, np.ndarray]:
         """Named key columns + aggregate columns as NumPy arrays, padding
         removed, rows sorted by the composite key (major column first).
         Masks with the state's sentinel: a rollup level may carry a
         KeySpec of at most 32 bits over a uint64 state."""
-        keys, mask = _host_keys(self.state)
+        state = _whole(self.state, self.mesh)
+        keys, mask = _host_keys(state)
         out = {n: c[mask] for n, c in self.by.unpack(keys).items()}
-        for name, col in self.aggs.finalize(self.state).items():
+        for name, col in self.aggs.finalize(state).items():
             out[name] = _np(col)[mask]
         return out
+
+    def _ordered_state(self) -> AggState:
+        """The state in the one-device layout (keys ascending, one EMPTY
+        tail): a mesh relation's shards gathered, then one compaction
+        gather (not a sort) closes the gaps between them."""
+        if self.mesh is None:
+            return self.state
+        return mj_mod.compact_state(_whole(self.state, self.mesh))
+
+    def _mesh_shard(self, mesh) -> AggState:
+        """This rank's input to a mesh merge join: a mesh relation's own
+        shard as it is (no gather), or, of a relation every rank holds
+        whole, the rows the reference's ``P(axis)`` gives this rank (the
+        state padded with EMPTY to a multiple of ``world``)."""
+        if self.mesh is not None:
+            if self.mesh.world != mesh.world or self.mesh.rank != mesh.rank:
+                raise ValueError("merge join of a mesh relation on another mesh")
+            return self.state
+        st = self.state
+        cap = -(-st.capacity // mesh.world) * mesh.world
+        if cap != st.capacity:
+            st = concat_states(st, empty_like(st, cap - st.capacity))
+        rows = cap // mesh.world
+        return st.map(lambda x: x[mesh.rank * rows:(mesh.rank + 1) * rows])
+
+    def _global_capacity(self) -> int:
+        return self.state.capacity * (1 if self.mesh is None else self.mesh.world)
 
     @property
     def sorted_by(self) -> dict[str, Any]:
@@ -287,16 +345,27 @@ class AggResult:
         ``"anti"`` (those without).  Both sides must pack their keys the
         same way (same key dtype and column bit layout) and lie on one
         device.  On a CUDA state ``backend="auto"`` is ``"cuda"``: the
-        probe kernel launches or the call raises."""
-        if mesh is not None or mesh_axis is not None:
-            raise NotImplementedError(
-                "the mesh-sharded merge join is not ported yet (ROADMAP Queue 1 item 11, "
-                "distributed aggregation)")
+        probe kernel launches or the call raises.
+
+        ``mesh`` runs the sharded form (every rank calls it): both sides are
+        partitioned by one jointly sampled cut vector through the key-range
+        ``all_to_all``, each owner merges its fragments and joins locally,
+        so there is still no sort.  A mesh relation enters as its rank's
+        shard, without a gather (its rows are then spread over the ranks as
+        its aggregate left them, not re-sliced as the reference's compacted
+        global array: the joined relation is the same, the exchange's
+        accounting may differ); a relation every rank holds whole enters as
+        the rank's ``P(axis)`` slice, as in the reference.
+        ``stats.rows_exchanged`` adds both sides' shuffle volume to what the
+        inputs paid."""
         _check_join_compat(self.by, other.by)
+        if how not in mj_mod.JOIN_HOWS:
+            raise ValueError(f"unknown join how={how!r}; expected one of {mj_mod.JOIN_HOWS}")
         if self.state.device != other.state.device:
             raise ValueError(
                 f"join of relations on {self.state.device} and {other.state.device}")
         backend = dispatch.resolve_backend_name(backend, self.state.device)
+        stats = SpillStats.reduce_shards([self.stats, other.stats])
         plan: dict[str, Any] = {
             "operator": "merge_join",
             "how": how,
@@ -306,17 +375,35 @@ class AggResult:
             "left_plan": self.plan,
             "right_plan": other.plan,
         }
-        left, right = mj_mod.merge_join(self.state, other.state, how=how, backend=backend)
+        if mesh is not None:
+            from repro_torch.distributed import sharding
+
+            axis = sharding.resolve_mesh_axis(mesh, mesh_axis)
+            sharding.check_mesh_device(mesh, self.state.device)
+            left, right, exchange = _mesh_merge_join(
+                self._mesh_shard(mesh), other._mesh_shard(mesh), mesh, how=how,
+                backend=backend)
+            stats = dataclasses.replace(
+                stats, rows_exchanged=stats.rows_exchanged + exchange["rows_exchanged"],
+                exchange_quota=max(stats.exchange_quota, exchange["quota"]),
+                exchange_max_fill=max(stats.exchange_max_fill, exchange["max_fill"]),
+                exchange_retries=stats.exchange_retries + exchange["retries"])
+            plan["mesh"] = {"axis": axis, "world": mesh.world, "exchange": exchange}
+        elif mesh_axis is not None:
+            raise ValueError("mesh_axis= was passed without mesh=")
+        else:
+            left, right = mj_mod.merge_join(self._ordered_state(), other._ordered_state(),
+                                            how=how, backend=backend)
         products = _join_products_state(left, right) if how == "inner" else None
         dev_type = self.state.device.type
+        cap_l, cap_r = self._global_capacity(), other._global_capacity()
         plan["cost_model"] = cost_model.join_cost_surface(
-            self.state.capacity, other.state.capacity, inputs_sorted=True, backend=dev_type)
+            cap_l, cap_r, inputs_sorted=True, backend=dev_type)
         plan["cost_model_resort_baseline"] = cost_model.join_cost_surface(
-            self.state.capacity, other.state.capacity, inputs_sorted=False, backend=dev_type)
+            cap_l, cap_r, inputs_sorted=False, backend=dev_type)
         return JoinResult(
             left=left, right=right, products=products, by=self.by, left_aggs=self.aggs,
-            right_aggs=other.aggs, stats=SpillStats.reduce_shards([self.stats, other.stats]),
-            plan=plan, how=how,
+            right_aggs=other.aggs, stats=stats, plan=plan, how=how, mesh=mesh,
         )
 
     def rollup(self, levels: Sequence[int] | None = None, *,
@@ -327,12 +414,67 @@ class AggResult:
         module-level :func:`rollup`."""
         backend = dispatch.resolve_backend_name(backend, self.state.device)
         out: dict[tuple[str, ...], AggResult] = {}
-        for names, st, spec in _iter_prefix_levels(self.state, self.by, levels, backend):
+        for names, st, spec in _iter_prefix_levels(self._ordered_state(), self.by, levels,
+                                                   backend):
             plan = dict(self.plan)
+            plan.pop("mesh", None)  # gathered and compacted: one device's layout again
             plan["rollup"] = {"level": names, "sorts": 0, "from_order": self.sorted_by}
             out[names] = AggResult(state=st, stats=self.stats, by=spec, aggs=self.aggs,
                                    plan=plan)
         return out
+
+
+def _mesh_merge_join(a: AggState, b: AggState, mesh, *, how: str, backend: str):
+    """The mesh merge join of this rank's shards ``a`` and ``b``: joint
+    sampled cuts, both sides through the capacity-bounded key-range
+    exchange, the per-owner local merge join
+    (:func:`repro_torch.distributed.groupby.sharded_merge_join_local`).  A
+    send segment over either side's quota retries once at the next pow2
+    quotas with a warning, then raises ``ExchangeOverflowError``; any other
+    row loss (an owner's matches past its output slice) raises at once.
+    One readback of the flags and the accounting per attempt.  Returns
+    ``(left, right_or_None, exchange)``, ``exchange`` the host accounting
+    (``rows_exchanged``, ``quota``, ``max_fill``, ``retries``)."""
+    from repro_torch.distributed import groupby as gb_mod
+
+    world = mesh.world
+    cap_a, cap_b = a.capacity, b.capacity
+    q_a = gb_mod.default_exchange_quota(cap_a, world)
+    q_b = gb_mod.default_exchange_quota(cap_b, world)
+
+    def run(qa, qb):
+        left, right, sent, send_dropped, dropped, fill = gb_mod.sharded_merge_join_local(
+            a, b, mesh, how=how, backend=backend, quota_a=qa, quota_b=qb)
+        return (left, right, *host_ints(sent, send_dropped, dropped, fill))
+
+    left, right, rows_sent, send_dropped, dropped, max_fill = run(q_a, q_b)
+    retries = 0
+    if send_dropped:
+        qa2 = gb_mod.next_exchange_quota(q_a, cap_a)
+        qb2 = gb_mod.next_exchange_quota(q_b, cap_b)
+        if qa2 is None and qb2 is None:
+            raise ExchangeOverflowError(
+                "mesh-sharded merge join exchange overflowed its per-peer quotas at the "
+                f"lossless ceiling (fullest segment {max_fill} rows vs quotas {q_a}/{q_b})",
+                quota=max(q_a, q_b), max_fill=max_fill)
+        logging.getLogger(__name__).warning(
+            "mesh merge join exchange overflowed its per-peer quotas %d/%d (fullest segment "
+            "%d rows); retrying once at %d/%d", q_a, q_b, max_fill, qa2 or q_a, qb2 or q_b)
+        retries, q_a, q_b = 1, qa2 or q_a, qb2 or q_b
+        left, right, rows_sent, send_dropped, dropped, max_fill = run(q_a, q_b)
+        if send_dropped:
+            raise ExchangeOverflowError(
+                "mesh-sharded merge join exchange overflowed its per-peer quotas even after "
+                f"one retry at {q_a}/{q_b} (fullest segment {max_fill} rows) — results would "
+                "be missing join keys", quota=max(q_a, q_b), max_fill=max_fill)
+    if dropped:
+        raise RuntimeError(
+            "mesh-sharded merge join dropped rows: a key-range owner's matches exceeded its "
+            "output slice (skewed cuts) — results would be missing join keys.  Widen the "
+            "inputs' capacity or join without mesh=")
+    exchange = {"rows_exchanged": rows_sent, "quota": max(q_a, q_b), "max_fill": max_fill,
+                "retries": retries}
+    return left, (right if how == "inner" else None), exchange
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -405,13 +547,34 @@ class JoinResult:
     stats: SpillStats
     plan: dict[str, Any]
     how: str = "inner"
+    mesh: Any = None
 
     @property
     def state(self) -> AggState:
         return self.left
 
     def occupancy(self) -> int:
-        return host_ints(self.left.occupancy())[0]
+        occ = host_ints(self.left.occupancy())[0]
+        if self.mesh is None:
+            return occ
+        from repro_torch.distributed import sharding
+
+        return sharding.host_all_reduce(self.mesh, [occ], "sum")[0]
+
+    def _whole_states(self, compact: bool) -> tuple:
+        """(left, right, products), a mesh join's gathered over the ranks
+        (and with ``compact`` compacted: the sides share one key vector,
+        so one compaction keeps them aligned)."""
+        states = [self.left, self.right, self.products]
+        if self.mesh is None:
+            return tuple(states)
+        out = []
+        for s in states:
+            if s is not None:
+                s = _whole(s, self.mesh)
+                s = mj_mod.compact_state(s) if compact else s
+            out.append(s)
+        return tuple(out)
 
     @property
     def sorted_by(self) -> dict[str, Any]:
@@ -421,17 +584,19 @@ class JoinResult:
     def relation(self) -> dict[str, np.ndarray]:
         """Key columns + per-side aggregate columns (``*_left`` /
         ``*_right``) + the group-join product columns (inner joins),
-        padding removed, rows in key order."""
-        keys, mask = _host_keys(self.left)
+        padding removed, rows in key order (a mesh join's shards gathered
+        first: every rank must call it)."""
+        left, right, products = self._whole_states(compact=False)
+        keys, mask = _host_keys(left)
         out = {n: c[mask] for n, c in self.by.unpack(keys).items()}
-        for name, col in self.left_aggs.finalize(self.left).items():
+        for name, col in self.left_aggs.finalize(left).items():
             out[f"{name}_left"] = _np(col)[mask]
-        if self.right is not None:
-            for name, col in self.right_aggs.finalize(self.right).items():
+        if right is not None:
+            for name, col in self.right_aggs.finalize(right).items():
                 out[f"{name}_right"] = _np(col)[mask]
-        if self.products is not None:
-            wl = self.left.sum.shape[1]
-            plane = _np(self.products.sum)[mask]
+        if products is not None:
+            wl = left.sum.shape[1]
+            plane = _np(products.sum)[mask]
             out["join_count"] = plane[:, 0]
             out["sum_left_x_count_right"] = plane[:, 1: 1 + wl]
             out["count_left_x_sum_right"] = plane[:, 1 + wl:]
@@ -445,14 +610,16 @@ class JoinResult:
         combine to every side and the alignment holds; the product planes
         are sums over join pairs and roll up exactly."""
         backend = dispatch.resolve_backend_name(backend, self.left.device)
-        parts = [s for s in (self.left, self.right, self.products) if s is not None]
+        left, right, products = self._whole_states(compact=True)
+        parts = [s for s in (left, right, products) if s is not None]
         peels = [_iter_prefix_levels(s, self.by, levels, backend) for s in parts]
         out: dict[tuple[str, ...], JoinResult] = {}
         for tier in zip(*peels):
             names, st_l, spec = tier[0]
-            st_r = tier[1][1] if self.right is not None else None
-            st_p = tier[-1][1] if self.products is not None else None
+            st_r = tier[1][1] if right is not None else None
+            st_p = tier[-1][1] if products is not None else None
             plan = dict(self.plan)
+            plan.pop("mesh", None)  # gathered and compacted: one device's layout again
             plan["rollup"] = {"level": names, "sorts": 0, "from_order": self.sorted_by}
             out[names] = JoinResult(
                 left=st_l, right=st_r, products=st_p, by=spec, left_aggs=self.left_aggs,
@@ -606,7 +773,8 @@ def aggregate(columns, *, by: KeySpec, values=None,
               aggs: AggSpec | Sequence[str] | str = ("count",), order_by=None,
               algorithm: str = "auto", backend: str = "auto", cfg: ExecConfig | None = None,
               output_estimate: int | None = None, input_sorted: bool = False,
-              pipeline: str = "device", device="cuda") -> AggResult:
+              pipeline: str = "device", mesh=None, mesh_axis: str | None = None,
+              device="cuda") -> AggResult:
     """Duplicate removal / grouping / aggregation behind one front door.
 
     ``columns``: mapping of key-column name → integer vector (or a
@@ -632,17 +800,31 @@ def aggregate(columns, *, by: KeySpec, values=None,
     (replacement selection), ``"adaptive"`` (the run-generation policy
     re-decided mid-stream by :mod:`repro_torch.core.adaptive`), or
     ``"auto"``, which is ``"adaptive"`` where ``memory_rows`` is a multiple
-    of ``batch_rows``."""
+    of ``batch_rows`` on one device.
+
+    ``mesh`` (a :class:`repro_torch.distributed.sharding.Mesh`) shards the
+    in-sort device pipeline over its ranks (``plan["mesh"]``): every rank
+    calls ``aggregate`` with its own rows (``sharding.local_slice(col, mesh,
+    pad=False)`` of each column gives it the reference's shard of a global
+    input), runs the pipeline over them, and a sampled key-range
+    ``all_to_all`` leaves each rank its key range of the result, sorted;
+    ``stats.rows_exchanged`` counts the rows on the wire (below the input
+    rows on duplicate-heavy data).  A streamed input on a mesh is the global
+    column batches, of which each rank keeps its slice.  In-sort only."""
     from repro_torch.core.operators import ALGORITHMS, group_by  # imports this module
 
     cfg = cfg or ExecConfig()
+    if mesh is not None and algorithm not in ("auto", "insort"):
+        raise ValueError(f"mesh-sharded aggregation is in-sort only, got algorithm="
+                         f"{algorithm!r}")
     if not isinstance(aggs, AggSpec):
         aggs = AggSpec(aggs) if isinstance(aggs, str) else AggSpec(*aggs)
     if isinstance(columns, Iterator):
         return _aggregate_stream(columns, by=by, values=values, aggs=aggs, order_by=order_by,
                                  algorithm=algorithm, backend=backend, cfg=cfg,
                                  output_estimate=output_estimate, input_sorted=input_sorted,
-                                 pipeline=pipeline, device=device)
+                                 pipeline=pipeline, mesh=mesh, mesh_axis=mesh_axis,
+                                 device=device)
     if algorithm == "adaptive":
         raise ValueError(
             "algorithm='adaptive' adapts mid-stream — it needs streamed input (pass an "
@@ -664,26 +846,34 @@ def aggregate(columns, *, by: KeySpec, values=None,
         widths = (0, 0, 0)
         if aggs.needs_payload():
             raise ValueError(f"aggregates {aggs.names} need a payload; pass values=...")
-    plan = _plan(len(packed), cfg, output_estimate, input_sorted=input_sorted,
+    n_rows = len(packed)
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+
+        axis = sharding.resolve_mesh_axis(mesh, mesh_axis)
+        (n_rows,) = sharding.host_all_reduce(mesh, [n_rows], "sum")  # the global input
+    plan = _plan(n_rows, cfg, output_estimate, input_sorted=input_sorted,
                  device_type=dev.type)
     backend = dispatch.resolve_backend_name(backend, dev)
     plan["backend"] = backend
     plan["algorithm"] = "insort" if algorithm == "auto" else algorithm
     plan["pipeline"] = pipeline if algorithm in ("auto", "insort") else "host"
     plan["device"] = str(dev)
+    if mesh is not None:
+        plan["mesh"] = {"axis": axis, "world": mesh.world}
     state, stats = group_by(packed, values, cfg, algorithm=algorithm,
                             output_estimate=output_estimate, backend=backend, widths=widths,
-                            pipeline=pipeline, device=dev)
+                            pipeline=pipeline, mesh=mesh, mesh_axis=mesh_axis, device=dev)
     if want_sorted and algorithm in ("hash", "f1_hash"):
         # hash order → key order: the sort the paper's operator never pays (Fig 19)
         state = sorted_ops.sort_state(state, backend=backend)
-    return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan)
+    return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan, mesh=mesh)
 
 
 def _aggregate_stream(batches, *, by: KeySpec, values, aggs: AggSpec, order_by,
                       algorithm: str, backend: str, cfg: ExecConfig,
                       output_estimate: int | None, input_sorted: bool, pipeline: str,
-                      device) -> AggResult:
+                      mesh, mesh_axis, device) -> AggResult:
     """:func:`aggregate` over an iterator of column-batch mappings.  Each
     batch carries the key columns of ``by`` and, where ``values`` names
     one, a float column; batches are packed on the host one at a time and
@@ -693,12 +883,12 @@ def _aggregate_stream(batches, *, by: KeySpec, values, aggs: AggSpec, order_by,
     if algorithm not in ("auto", "insort", "adaptive"):
         raise ValueError(
             f"streamed input runs the in-sort device pipeline only, got algorithm={algorithm!r}")
-    adaptive_ok = cfg.memory_rows % cfg.batch_rows == 0
+    adaptive_ok = mesh is None and cfg.memory_rows % cfg.batch_rows == 0
     if algorithm == "adaptive" and not adaptive_ok:
         raise ValueError(
             "algorithm='adaptive' needs a single-device stream with memory_rows divisible by "
-            f"batch_rows, got mesh=None, memory_rows={cfg.memory_rows}, "
-            f"batch_rows={cfg.batch_rows}")
+            f"batch_rows, got mesh={'set' if mesh is not None else None}, "
+            f"memory_rows={cfg.memory_rows}, batch_rows={cfg.batch_rows}")
     adaptive = algorithm == "adaptive" or (algorithm == "auto" and adaptive_ok)
     policy = "adaptive" if adaptive else "rs"
     if pipeline != "device":
@@ -735,16 +925,22 @@ def _aggregate_stream(batches, *, by: KeySpec, values, aggs: AggSpec, order_by,
         if adaptive and stats is not None:
             plan["policy_switches"] = stats.policy_switches
             plan["readbacks_paid"] = stats.readbacks_paid
+        if mesh is not None and stats is not None:
+            from repro_torch.distributed import sharding
+
+            plan["mesh"] = {"axis": sharding.resolve_mesh_axis(mesh, mesh_axis),
+                            "world": mesh.world}
         return plan
 
     it = iter(batches)
     first = next(it, None)
     kw = dict(policy=policy, backend=backend, key_dtype=by.key_dtype,
-              output_estimate=output_estimate, device=dev)
+              output_estimate=output_estimate, mesh=mesh, mesh_axis=mesh_axis, device=dev)
     if first is None:
         state, stats = pipeline_mod.insort_aggregate_device_stream(
             iter(()), cfg, widths=(0, 0, 0), width=0, **kw)
-        return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan_of(None))
+        return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan_of(None),
+                         mesh=mesh)
     first_prepped = prep(first)
     V = 0 if first_prepped[1] is None else first_prepped[1].shape[1]
     widths = aggs.plane_widths(V)
@@ -759,7 +955,8 @@ def _aggregate_stream(batches, *, by: KeySpec, values, aggs: AggSpec, order_by,
     chunks = itertools.chain([first_prepped], (prep(b) for b in it))
     state, stats = pipeline_mod.insort_aggregate_device_stream(chunks, cfg, widths=widths,
                                                                width=V, **kw)
-    return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan_of(stats))
+    return AggResult(state=state, stats=stats, by=by, aggs=aggs, plan=plan_of(stats),
+                     mesh=mesh)
 
 
 def serve_aggregate(**kwargs):

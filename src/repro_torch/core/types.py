@@ -339,12 +339,15 @@ class StagedChunk:
     side stream, and ``event`` marks the copy's end (None on the CPU).
     ``rows`` counts the valid input rows, ``rows_padded`` the rows of the
     chunk's pow2-bucketed batch geometry, by which the run slots are
-    sized."""
+    sized.  ``local_rows`` counts the valid rows of ``keys``: ``rows`` on
+    one device, this rank's share on a mesh, where ``keys``/``payload`` are
+    the rank's slice."""
 
     keys: torch.Tensor
     payload: torch.Tensor
     rows: int
     rows_padded: int
+    local_rows: int
     event: Any = None
 
 
@@ -429,14 +432,16 @@ class MergeOverflowError(RuntimeError):
 class ExchangeOverflowError(RuntimeError):
     """The cross-shard exchange's per-peer send quota was too small for a
     send segment: rows would have stayed behind on the sending shard.
-    Carries the ``quota`` the exchange ran at and the fullest segment's
-    ``max_fill`` so that a retry can size itself.  Raised by the mesh
-    paths (ROADMAP Queue 1 item 11)."""
+    Carries the ``quota`` the exchange ran at, the fullest segment's
+    ``max_fill`` and the sent state's ``capacity`` (the lossless ceiling,
+    0 where unknown) so that a retry can size itself.  Raised by the mesh
+    paths' ``DeviceSpillStats.finalize`` and the mesh merge join."""
 
-    def __init__(self, message: str, *, quota: int, max_fill: int):
+    def __init__(self, message: str, *, quota: int, max_fill: int, capacity: int = 0):
         super().__init__(message)
         self.quota = quota
         self.max_fill = max_fill
+        self.capacity = capacity
 
 
 @dataclasses.dataclass(frozen=True)
@@ -457,10 +462,45 @@ class DeviceSpillStats:
     run_buffer_overflowed: Any
     merge_dropped_rows: Any
     rows_retired: Any = 0
+    # the mesh exchange's block: rows this rank put on the wire, the
+    # retryable quota-overflow flag, the quota, the fullest segment and the
+    # sent state's rows (the retry's ceiling; not in SpillStats)
+    rows_exchanged: Any = 0
+    exchange_dropped: Any = False
+    exchange_quota: Any = 0
+    exchange_max_fill: Any = 0
+    exchange_capacity: Any = 0
 
     @classmethod
     def zeros(cls) -> "DeviceSpillStats":
         return cls(0, 0, 0, 0, 0, 0, 0, False, 0, False, False)
+
+    _SUMMED = ("rows_spilled_run_generation", "rows_spilled_merge", "runs_generated",
+               "merge_steps", "pages_read", "rows_emitted", "rows_retired", "rows_exchanged")
+
+    def cross_shard(self, mesh) -> "DeviceSpillStats":
+        """The ranks' accounting reduced to the global view (the
+        reference's ``psum``/``pmax`` in ``shard_map``): row and step
+        counters summed, merge depth, peak index occupancy, quota and
+        fullest segment maxed, the loud-failure flags OR'ed (as int64
+        MAX: gloo has no bool reduction), so that one rank's overflow
+        raises on every rank at :meth:`finalize`.  Two collectives, no
+        readback; every rank must call it."""
+        from repro_torch.distributed import sharding  # sharding imports this module
+
+        names = [f.name for f in dataclasses.fields(self)]
+        dev = mesh.device
+        vec = torch.stack([torch.as_tensor(getattr(self, n), device=dev).to(torch.int64)
+                           .reshape(()) for n in names])
+        summed = sharding.all_reduce(mesh, vec, "sum")
+        maxed = sharding.all_reduce(mesh, vec, "max")
+        flags = ("index_overflowed", "run_buffer_overflowed", "merge_dropped_rows",
+                 "exchange_dropped")
+        out = {}
+        for i, n in enumerate(names):
+            v = summed[i] if n in self._SUMMED else maxed[i]
+            out[n] = v > 0 if n in flags else v
+        return DeviceSpillStats(**out)
 
     def finalize(self, *, entry_point: str = "finalize") -> SpillStats:
         vals = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
@@ -473,6 +513,15 @@ class DeviceSpillStats:
                 f"{entry_point}; results would be missing rows (this is a bug in "
                 "the slot bound — please report input sizes and ExecConfig)"
             )
+        if vals["exchange_dropped"]:
+            raise ExchangeOverflowError(
+                f"the cross-shard exchange during {entry_point} overflowed its per-peer send "
+                f"quota ({int(vals['exchange_max_fill'])} rows in the fullest segment vs "
+                f"quota {int(vals['exchange_quota'])}); rows would have been left behind — "
+                "pass a larger exchange_quota (host entry points retry once at the next "
+                "pow2 automatically)",
+                quota=int(vals["exchange_quota"]), max_fill=int(vals["exchange_max_fill"]),
+                capacity=int(vals["exchange_capacity"]))
         if vals["merge_dropped_rows"]:
             if entry_point == "snapshot":
                 hint = ("raise output_rows (the snapshot output capacity) or pass a "
@@ -497,4 +546,7 @@ class DeviceSpillStats:
             index_overflowed=bool(vals["index_overflowed"]),
             max_index_occupancy=int(vals["max_index_occupancy"]),
             rows_retired=int(vals["rows_retired"]),
+            rows_exchanged=int(vals["rows_exchanged"]),
+            exchange_quota=int(vals["exchange_quota"]),
+            exchange_max_fill=int(vals["exchange_max_fill"]),
         )

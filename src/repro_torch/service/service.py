@@ -43,7 +43,10 @@ class AggregationService:
 
     Constructor arguments are :class:`~repro_torch.core.pipeline.
     StreamingAggregator`'s (``device`` defaults to ``"cuda"``; ``mesh=``
-    raises: the mesh service goes with ROADMAP Queue 1 item 11).
+    keeps one engine a rank: every rank ingests the same micro-batches and
+    keeps its slice, and snapshots and the close exchange by key range, so
+    that each rank answers its key range — every rank must make every
+    call).
     ``overlap=False`` disables the ingest double buffer (each chunk is
     absorbed with its staging)."""
 
@@ -171,7 +174,12 @@ class AggregationService:
         state, stats = self._agg.snapshot()
         self.wait()
         seconds = time.perf_counter() - t0
-        self.metrics.observe_snapshot(stats, groups=int(state.occupancy()), seconds=seconds)
+        groups = int(state.occupancy())
+        if self._agg.mesh is not None:  # the ranks' groups, as the reference's global state
+            from repro_torch.distributed import sharding
+
+            (groups,) = sharding.host_all_reduce(self._agg.mesh, [groups], "sum")
+        self.metrics.observe_snapshot(stats, groups=groups, seconds=seconds)
         self.metrics.observe_policy(self._agg.policy_events, readbacks=self._agg.readbacks_paid,
                                     current=self._agg.arm)
         return state, stats

@@ -41,7 +41,11 @@ class AggregationSession:
     cuts on; it must be the first KeySpec column, so that expiry is one
     packed-key range.  The payload width is fixed by the first ingested
     batch (the engine's plane widths are fixed).  ``device`` defaults to
-    ``"cuda"``; ``mesh=`` raises (ROADMAP Queue 1 item 11)."""
+    ``"cuda"``.  ``mesh=`` runs one engine a rank (see
+    :class:`AggregationService`): every rank ingests the same batches and
+    makes every call, and a snapshot or the close is a mesh
+    :class:`AggResult` holding the rank's key range (its ``relation()``
+    gathers the shards)."""
 
     def __init__(
         self,
@@ -76,10 +80,6 @@ class AggregationSession:
                 f"watermark column {watermark!r} must be the major (first) key column "
                 f"{by.names[0]!r}: the KeySpec packs major-first, so only the major column "
                 "maps TTL expiry onto one contiguous packed-key range")
-        if mesh is not None or mesh_axis is not None:
-            raise NotImplementedError(
-                "mesh-sharded sessions are not ported yet (ROADMAP Queue 1 item 11, "
-                "distributed aggregation)")
         self.by = by
         self.aggs = aggs
         self.values = values
@@ -89,7 +89,7 @@ class AggregationSession:
         self._engine_kw = dict(
             policy=policy, backend=backend, index_rows=index_rows,
             output_estimate=output_estimate, output_rows=output_rows, overlap=overlap,
-            governor=governor, device=self.device,
+            governor=governor, mesh=mesh, mesh_axis=mesh_axis, device=self.device,
         )
         self._svc: AggregationService | None = None
         self._closed = False
@@ -128,7 +128,8 @@ class AggregationSession:
                                                         self.device)),
             snapshots=self.metrics.snapshots_taken, device=str(self.device),
         )
-        return AggResult(state=state, stats=stats, by=self.by, aggs=self.aggs, plan=plan)
+        return AggResult(state=state, stats=stats, by=self.by, aggs=self.aggs, plan=plan,
+                         mesh=self._engine_kw["mesh"] if state.capacity else None)
 
     def _empty_result(self) -> AggResult:
         """The valid empty relation: the declared key columns and planes, no

@@ -145,15 +145,23 @@ def test_governor_config_validation():
 
 def test_governor_refused_where_it_cannot_steer():
     """A governor that would never steer is refused at construction; an
-    adaptive stream needs M divisible by B; ``mesh=`` is not ported."""
+    adaptive stream needs M divisible by B; neither the adaptive policy nor
+    a governor composes with ``mesh=`` (ValueError, as in the
+    reference)."""
     gov = PolicyGovernor(ExecConfig(**CFG))
     with pytest.raises(ValueError, match="fixed policy 'rs'"):
         pipeline.StreamingAggregator(ExecConfig(**CFG), policy="rs", governor=gov, device="cpu")
     odd = ExecConfig(memory_rows=192, page_rows=32, fanin=4, batch_rows=128)
     with pytest.raises(ValueError, match="divisible"):
         pipeline.StreamingAggregator(odd, policy="adaptive", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pipeline.StreamingAggregator(ExecConfig(**CFG), policy="adaptive", mesh=object(),
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.data_mesh("data", device="cpu")
+    with pytest.raises(ValueError, match="does not compose with mesh"):
+        pipeline.StreamingAggregator(ExecConfig(**CFG), policy="adaptive", mesh=mesh,
+                                     device="cpu")
+    with pytest.raises(ValueError, match="does not compose with mesh"):
+        pipeline.StreamingAggregator(ExecConfig(**CFG), policy="rs", governor=gov, mesh=mesh,
                                      device="cpu")
 
 

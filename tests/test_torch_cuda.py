@@ -560,3 +560,60 @@ def test_serve_full_width_two_layers_on_the_card_matches_cpu(dev):
                  keep_logits=True)
     np.testing.assert_allclose(a.logits, b.logits, rtol=1e-3, atol=1e-3)
     np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def _mesh_ranks(tmp_path, device: str, names, world: int = 2) -> dict:
+    """Run ``names`` (cases of ``tests/_torch_shard_cases.py``) on ``world``
+    spawned ranks joined over gloo on ``device``: {name: [rank results]}."""
+    import _torch_shard_cases as cases
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    tasks = [ctx.Queue() for _ in range(world)]
+    results = ctx.Queue()
+    procs = [ctx.Process(target=cases.rank_main, daemon=True,
+                         args=(r, world, str(tmp_path / f"rdv_{device}"), device, tasks[r],
+                               results)) for r in range(world)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for name in names:
+            for q in tasks:
+                q.put(name)
+            got = {}
+            for _ in range(world):
+                rank, n, status, payload = results.get(timeout=300)
+                assert status == "ok", payload
+                got[rank] = payload
+            out[name] = [got[r] for r in range(world)]
+    finally:
+        for q in tasks:
+            q.put(None)
+        for p in procs:
+            p.join(timeout=60)
+    return out
+
+
+def test_gloo_mesh_on_the_card_matches_cpu_ranks(dev, tmp_path):
+    """A 2-rank gloo mesh on cuda:0 against the same mesh of CPU ranks: the
+    one-shot mesh pipeline (both key widths), its exchange retry, the
+    exchange at edge geometry and the distributed group-by give equal rows,
+    shard by shard, and equal ``SpillStats``."""
+    names = ("oneshot-rs-uint32-w2", "oneshot-early_agg-uint64-w2", "retry-w2",
+             "exchange-edge-w2", "groupby-w2")
+    card = _mesh_ranks(tmp_path, "cuda", names)
+    cpu = _mesh_ranks(tmp_path, "cpu", names)
+    for name in names:
+        for r, (a, b) in enumerate(zip(card[name], cpu[name])):
+            assert sorted(a) == sorted(b), name
+            for entry, want in b.items():
+                got = a[entry]
+                if not isinstance(want, dict) or not all(isinstance(v, np.ndarray)
+                                                         for v in want.values()):
+                    assert got == want, (name, r, entry)
+                    continue
+                for f, w in want.items():
+                    if w.dtype.kind == "f":  # normal payloads: sums in another order
+                        np.testing.assert_allclose(got[f], w, rtol=1e-5, atol=1e-5)
+                    else:
+                        np.testing.assert_array_equal(got[f], w, err_msg=f"{name} {entry}")

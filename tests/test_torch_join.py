@@ -463,8 +463,16 @@ def test_join_guards(relations):
     L, R, _, _, _ = relations
     with pytest.raises(ValueError, match="unknown join how"):
         L.merge_join(R, how="outer")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        L.merge_join(R, mesh=object())
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.data_mesh("data", device="cpu")  # one rank: no process group
+    with pytest.raises(ValueError, match="no axis"):
+        L.merge_join(R, mesh=mesh, mesh_axis="model")
+    with pytest.raises(ValueError, match="without mesh"):
+        L.merge_join(R, mesh_axis="data")
+    one = L.merge_join(R, mesh=mesh)  # a mesh of one rank joins as one device does
+    assert one.plan["mesh"]["world"] == 1 and one.stats.rows_exchanged > 0
+    _assert_relation(one.relation(), L.merge_join(R).relation(), "mesh of one")
     wide = dataclasses.replace(R, by=repro_torch.KeySpec.of(region=6, store=30))
     with pytest.raises(TypeError, match="dtype mismatch"):
         L.merge_join(wide)

@@ -160,12 +160,18 @@ def test_unported_policies_raise(policy):
 
 
 def test_host_pipeline_raises():
-    """The host loop runs now; the mesh it cannot take still raises."""
+    """The host loop runs now; the mesh it cannot take raises, as the
+    reference's guard does (the mesh needs the device pipeline)."""
+    from repro_torch.distributed import sharding
+
     keys = np.arange(10, dtype=np.uint32) % 4
     state, _ = insort_aggregate(keys, pipeline="host", device="cpu")
     assert validate_against_oracle(state, keys)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        insort_aggregate(keys, pipeline="host", mesh=object(), device="cpu")
+    mesh = sharding.data_mesh("data", device="cpu")
+    with pytest.raises(ValueError, match="pipeline='device'"):
+        insort_aggregate(keys, pipeline="host", mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="pipeline='device'"):
+        insort_aggregate(keys, use_wide_merge=False, mesh=mesh, device="cpu")
 
 
 @pytest.mark.parametrize("capacity,dropped", [(6, False), (5, True)])

@@ -523,10 +523,17 @@ def test_session_closed_and_validation():
         sess2.expire_below(3, minute=3)
     with pytest.raises(RuntimeError, match="watermark"):
         repro_torch.serve_aggregate(by=by, **kw).expire_below(3)
-    for make in (lambda: AggregationService(ExecConfig(**SMALL), mesh=object(), device="cpu"),
-                 lambda: repro_torch.serve_aggregate(by=by, mesh=object(), **kw)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.data_mesh("data", device="cpu")
+    for make in (lambda: AggregationService(ExecConfig(**SMALL), policy="adaptive", mesh=mesh,
+                                            device="cpu"),
+                 lambda: AggregationService(ExecConfig(**SMALL), mesh=mesh, mesh_axis="model",
+                                            device="cpu")):
+        with pytest.raises(ValueError, match="mesh|axis"):
             make()
+    assert repro_torch.serve_aggregate(by=by, mesh=mesh, **kw).snapshot().relation()[
+        "count"].size == 0
     assert repro_torch.service.serve_aggregate(by=by, **kw).device.type == "cpu"
     assert isinstance(sess2, AggregationSession)
 

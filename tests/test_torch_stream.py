@@ -409,8 +409,8 @@ def test_staging_pads_in_the_unsigned_domain():
     agg = pipeline.StreamingAggregator(ExecConfig(**SMALL), key_dtype=np.uint64, width=1,
                                        device="cpu")
     keys = np.array([5, (1 << 63) - 1, 1 << 63], np.uint64)
-    padded, pay, rows, rows_padded = agg._prep(keys, None)
-    assert rows == 3 and rows_padded == SMALL["batch_rows"] == padded.size
+    padded, pay, rows, rows_padded, local = agg._prep(keys, None)
+    assert rows == local == 3 and rows_padded == SMALL["batch_rows"] == padded.size
     assert (padded[3:] == np.iinfo(np.uint64).max).all() and pay.shape == (32, 1)
     agg.absorb(keys)
     state, _ = agg.finalize()
@@ -578,8 +578,8 @@ def test_evict_below_matches_reference(name):
 
 def test_small_types_match_reference():
     """``KeySpec.max_packed``, ``types.max_key`` and
-    ``ExchangeOverflowError`` as the reference has them; ``mesh=`` raises,
-    naming its ROADMAP item."""
+    ``ExchangeOverflowError`` as the reference has them; a mesh of one rank
+    streams as one device does, but for the exchange's accounting."""
     for bits in ({"a": 12}, {"a": 20, "b": 20}):
         assert (repro_torch.KeySpec.of(**bits).max_packed
                 == repro.KeySpec.of(**bits).max_packed)
@@ -589,11 +589,16 @@ def test_small_types_match_reference():
     err = t_types.ExchangeOverflowError("quota", quota=8, max_fill=11)
     assert isinstance(err, RuntimeError) and (err.quota, err.max_fill) == (8, 11)
     cfg = ExecConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pipeline.StreamingAggregator(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        operators.group_by(iter([np.arange(5, dtype=np.uint32)]), None, cfg, mesh=object(),
-                           device="cpu")
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.data_mesh("data", device="cpu")
+    with pytest.raises(ValueError, match="without mesh"):
+        pipeline.StreamingAggregator(cfg, mesh_axis="data", device="cpu")
+    keys = np.arange(5, dtype=np.uint32)
+    st, stats = operators.group_by(iter([keys]), None, cfg, mesh=mesh, device="cpu")
+    st1, stats1 = operators.group_by(iter([keys]), None, cfg, device="cpu")
+    assert stats.rows_exchanged == 5 and stats.exchange_quota > 0
+    np.testing.assert_array_equal(_live(st)[0], _live(st1)[0])
     with pytest.raises(ValueError, match="unknown policy"):
         pipeline.StreamingAggregator(cfg, policy="hash", device="cpu")
     agg = pipeline.StreamingAggregator(cfg, device="cpu")
