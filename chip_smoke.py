@@ -125,6 +125,30 @@ with a non-zero exit):
    from zero and fails if one never launched; rank 0 holds its kernels'
    inputs against the plain versions.  Part a runs again on NCCL, one rank
    a card, where there are two cards.
+14. corpus dedup: ``SyntheticCorpus`` at llama3-8b's vocabulary (128,256)
+   and 2^21 documents from the seed, every fingerprint on the card
+   (``data.pipeline.fingerprints``, equal on a sample to the reference's
+   one-document hash), ``dedup_examples`` under ``M = 2^16`` (runs spill
+   through a pre-merge level and the wide merge): the kept documents are
+   the first occurrences of ``np.unique``'s fingerprints, the
+   ``SpillStats`` equal the port's CPU run on the same fingerprints; the
+   kept documents packed into rows of 4,096 tokens (every token kept; a
+   prefix of 2^12 documents equal to the reference's row-scan first fit);
+   ``ops.sort_keys`` on 2^20 fingerprints and ``bitonic_sort`` /
+   ``bitonic_sort_kv`` on a (64, 4096) batch of them, equal to their plain
+   versions; the wall of each step;
+15. the dense family: a) llama3-8b (``kv_dup`` 2), qwen2-1.5b (QKV bias,
+   tied embeddings) and granite-20b (MQA, gelu) at full width cut to 2
+   layers in float32, the card against the port's CPU run on the same
+   weights, teacher-forced (prompt 32, 4 tokens): logits within rtol/atol
+   1e-3, greedy tokens equal; b) each dense config in bfloat16 at full
+   width, batch 4, prompt 256, 16 tokens (llama3-8b, qwen2-1.5b and
+   granite-20b at their published depth, mistral-large-123b cut to 16 of
+   its 88 layers): finite logits, tokens inside the vocabulary, with the
+   weight bytes, init, prefill, decode ms a token, tokens/s, peak memory
+   and the device's idle share;
+16. the example twins (``examples/torch_*.py``) at their default sizes on
+   the card, each in its own process, the four at once: each must exit 0.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -135,7 +159,7 @@ the inputs of the shape that carried most rows through them (``settle``):
 the aggregate kernels on phase 3's, the probe on phase 6's, the bitonic
 foil on phase 8's, the grouped matmul on phase 9's, the argsort and the
 grouped matmul at every shape a path gave them, with the other paths'
-times beside, and the operations one call puts on the card
+times beside (phase 14's key sorts among them), and the operations one call puts on the card
 (``torch.profiler``; the argsort must be one kernel up to 65,536 keys,
 the combine two kernels and a memset, and the foil its plan's).  The
 last lines are the kernels' JSON record, the card's name and power
@@ -2514,6 +2538,292 @@ def mesh_path(dev, rows, q18, by_path: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: corpus dedup, length packing and the key sorts
+# ---------------------------------------------------------------------------
+
+# llama3-8b's vocabulary; the reference's corpus shape at 2^21 documents
+CORPUS = dict(vocab=128256, n_docs=1 << 21, dup_rate=0.3, max_len=512)
+DEDUP_CFG = dict(memory_rows=1 << 16, batch_rows=1 << 14, page_rows=1 << 12, fanin=16)
+PACK_SEQ = 4096
+PACK_PREFIX = 1 << 12  # documents packed again by the reference's row scan
+FINGERPRINT_SAMPLE = 4096  # documents hashed again one at a time
+SORT_KEYS = 1 << 20
+SORT_BATCH = (64, 4096)
+
+
+def first_fit_rows(docs, seq_len: int) -> np.ndarray:
+    """The reference's ``pack_by_length`` (NumPy, a scan over the rows for
+    each document), the oracle of the port's max-tree first fit."""
+    order = np.argsort([len(d) for d in docs])[::-1]
+    rows, space = [], []
+    for i in order:
+        d = docs[i][:seq_len]
+        for r in range(len(rows)):
+            if space[r] >= len(d):
+                rows[r].append(d)
+                space[r] -= len(d)
+                break
+        else:
+            rows.append([d])
+            space.append(seq_len - len(d))
+    out = np.full((len(rows), seq_len), -1, np.int32)
+    for r, ds in enumerate(rows):
+        cur = 0
+        for d in ds:
+            out[r, cur:cur + len(d)] = d
+            cur += len(d)
+    return out
+
+
+def key_sorts(dev, prints: np.ndarray, by_path: dict) -> dict:
+    """``ops.sort_keys`` on 2^20 fingerprints and ``bitonic_sort`` /
+    ``bitonic_sort_kv`` on a (64, 4096) batch of them, each equal to its
+    plain version on the CPU: one argsort launch each."""
+    import torch
+
+    from repro_torch.kernels import bitonic_sort, ops
+
+    keys = torch.from_numpy(prints[:SORT_KEYS].astype(np.int64)).to(dev)
+    t, n = SORT_BATCH
+    batch = torch.from_numpy(prints[:t * n].astype(np.int64).reshape(t, n)).to(dev)
+    vals = torch.arange(t * n, device=dev).view(t, n)
+    ops.reset_launch_counts()
+    with capture("key sorts"):
+        (got, sb, (sk, sv)), wall = timed(lambda: (ops.sort_keys(keys),
+                                                   bitonic_sort.bitonic_sort(batch),
+                                                   bitonic_sort.bitonic_sort_kv(batch, vals)))
+    launches = dict(ops.LAUNCHES)
+    if launches["argsort"] != 3:
+        raise SystemExit(f"FAIL key sorts: {launches['argsort']} argsort launches, expected 3")
+    by_path["key sorts"] = launches
+    want_k, want_v = bitonic_sort.bitonic_sort_kv(batch.cpu(), vals.cpu())
+    check_equal("sort_keys", got.cpu().numpy(), ops.sort_keys(keys.cpu()).numpy())
+    check_equal("bitonic_sort", sb.cpu().numpy(), want_k.numpy())
+    check_equal("bitonic_sort_kv keys", sk.cpu().numpy(), want_k.numpy())
+    check_equal("bitonic_sort_kv payload", sv.cpu().numpy(), want_v.numpy())
+    check_equal("sort_keys against np.sort", got.cpu().numpy(), np.sort(prints[:SORT_KEYS]))
+    settle("key sorts")  # phase 10 times the argsort at 2^20 keys
+    return dict(keys=SORT_KEYS, batch=list(SORT_BATCH), wall_s=wall, launches=launches)
+
+
+def dedup_path(dev, by_path: dict) -> dict:
+    """Phase 14: ``SyntheticCorpus`` at llama3-8b's vocabulary and 2^21
+    documents, its fingerprints on the card, ``dedup_examples`` (the
+    in-sort DISTINCT, spilling at M = 2^16 through a wide merge), the
+    kept documents packed into rows of 4,096 tokens, and the key sorts;
+    the wall of each step."""
+    import torch
+
+    from repro_torch.core.operators import distinct
+    from repro_torch.core.types import SYNCS, ExecConfig
+    from repro_torch.data import pipeline as D
+    from repro_torch.kernels import ops
+
+    walls = {}
+    t0 = time.perf_counter()
+    docs = D.SyntheticCorpus(seed=SEED, **CORPUS).documents()
+    walls["generation_s"] = time.perf_counter() - t0
+    n_tokens = sum(len(d) for d in docs)
+    prints, walls["fingerprint_s"] = timed(lambda: D.fingerprints(docs, device=dev))
+    sample = np.random.default_rng(SEED).choice(len(docs), FINGERPRINT_SAMPLE, replace=False)
+    check_equal("fingerprints (one document at a time)", prints[sample],
+                np.asarray([D.fingerprint(docs[i]) for i in sample], np.uint32))
+
+    cfg = ExecConfig(**DEDUP_CFG)
+    ops.reset_launch_counts()
+    SYNCS["host_syncs"] = 0
+    torch.cuda.reset_peak_memory_stats()
+    with capture("dedup"):
+        (uniq, stats), walls["dedup_s"] = timed(lambda: D.dedup_examples(docs, cfg, device=dev))
+    launches, syncs = dict(ops.LAUNCHES), SYNCS["host_syncs"]
+    peak = torch.cuda.max_memory_allocated()
+    require_launches("dedup", launches, AGG_KERNELS)
+    by_path["dedup"] = launches
+    keys, first = np.unique(prints, return_index=True)
+    if len(uniq) != keys.size or not all(u is docs[i] for u, i in zip(uniq, first)):
+        raise SystemExit(f"FAIL dedup: {len(uniq)} documents kept, {keys.size} distinct "
+                         "fingerprints, or not their first occurrences in fingerprint order")
+    t0 = time.perf_counter()
+    _, cpu_stats = distinct(prints, cfg, output_estimate=len(docs), device="cpu")
+    walls["dedup_cpu_parity_s"] = time.perf_counter() - t0
+    if stats.as_dict() != cpu_stats.as_dict():
+        raise SystemExit(f"FAIL dedup: SpillStats differ from the CPU run\n{stats.as_dict()}\n"
+                         f"{cpu_stats.as_dict()}")
+    if stats.runs_generated <= cfg.fanin or stats.rows_spilled_merge == 0:
+        raise SystemExit(f"FAIL dedup: no spill through a merge level: {stats.as_dict()}")
+    settle("dedup")
+
+    packed, walls["pack_s"] = timed(lambda: D.pack_by_length(uniq, PACK_SEQ))
+    kept = sum(min(len(d), PACK_SEQ) for d in uniq)
+    if int((packed >= 0).sum()) != kept or packed.shape[1] != PACK_SEQ:
+        raise SystemExit(f"FAIL pack: {int((packed >= 0).sum())} tokens packed of {kept}")
+    check_equal("pack_by_length (first fit by row scan)",
+                D.pack_by_length(uniq[:PACK_PREFIX], PACK_SEQ),
+                first_fit_rows(uniq[:PACK_PREFIX], PACK_SEQ))
+    sorts = key_sorts(dev, prints, by_path)
+    walls["key_sorts_s"] = sorts["wall_s"]
+    info = dict(docs=len(docs), tokens=n_tokens, unique_docs=len(uniq),
+                unique_tokens=sum(len(d) for d in uniq), cfg=DEDUP_CFG, stats=stats.as_dict(),
+                launches=launches, host_syncs=syncs, max_memory_allocated=peak,
+                rows_packed=int(packed.shape[0]), fill=kept / packed.size,
+                key_sorts=sorts, walls=walls)
+    log(f"phase 14, corpus dedup ok: {json.dumps(info)}")
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the dense model family's serve path
+# ---------------------------------------------------------------------------
+
+DENSE_GATE = ("llama3-8b", "qwen2-1.5b", "granite-20b")  # float32, 2 layers, card = CPU
+DENSE_GATE_SERVE = dict(batch=4, prompt_len=32, gen=4)
+# bfloat16 at full width: layers served (None: the published depth)
+DENSE_SERVE = {"llama3-8b": None, "qwen2-1.5b": None, "granite-20b": None,
+               "mistral-large-123b": 16}
+
+
+def dense_gate(dev, arch: str) -> dict:
+    """A 2-layer float32 copy of ``arch`` at full width served on the card
+    and, on the same weights, on the CPU teacher-forced with the card's
+    tokens: logits within rtol/atol 1e-3, greedy tokens equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cache_len, generate
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    b, s, gen = (DENSE_GATE_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(SEED))
+    card = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    host = M.Model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    max_len = cache_len(cfg, s + gen)
+    a = generate(card, cfg, prompts, gen=gen, max_len=max_len, keep_logits=True)
+    del card
+    p = generate(host, cfg, prompts, gen=gen, max_len=max_len, force=a.tokens[:, :-1],
+                 keep_logits=True)
+    diff = float(np.abs(a.logits - p.logits).max())
+    if not np.allclose(a.logits, p.logits, rtol=1e-3, atol=1e-3):
+        raise SystemExit(f"FAIL dense {arch} fp32: logits differ by {diff} (rtol/atol 1e-3)")
+    check_equal(f"dense {arch} fp32 greedy tokens", a.tokens, p.tokens)
+    flags = {f: getattr(cfg, f) for f in ("n_kv_heads", "kv_dup", "qkv_bias", "act",
+                                          "tie_embeddings")}
+    return dict(layers=2, **flags, max_abs_logit_diff=diff)
+
+
+def dense_serve(dev, arch: str, layers) -> dict:
+    """``arch`` in bfloat16 at full width (``layers`` of them, or all):
+    seeded weights, prefill of 4 x 256 tokens and greedy decode to 16;
+    finite logits, tokens inside the vocabulary, and the serve's figures."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cache_len, generate
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(SEED))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    _sync()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in model.parameters())
+    max_len = cache_len(cfg, s + gen)
+    a = generate(model, cfg, prompts, gen=gen, max_len=max_len, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(a.logits).all():
+        raise SystemExit(f"FAIL dense {arch} bf16: non-finite logits")
+    if a.tokens.min() < 0 or a.tokens.max() >= cfg.vocab:
+        raise SystemExit(f"FAIL dense {arch} bf16: tokens outside the vocabulary")
+    prof = device_profile("prefill + 2 decode steps", lambda: generate(
+        model, cfg, prompts, gen=3, max_len=cache_len(cfg, s + 3)), {})
+    info = dict(arch=arch, layers=cfg.n_layers, published_layers=published, dtype=cfg.dtype,
+                batch=b, prompt_len=s, gen=gen, weight_bytes=weights,
+                param_count=cfg.param_count(), init_s=init_s, prefill_s=a.t_prefill,
+                decode_ms_per_token=a.t_decode * 1e3, decode_tokens_per_s=b / a.t_decode,
+                generated_tokens_per_s=b * gen / (a.t_prefill + (gen - 1) * a.t_decode),
+                max_memory_allocated=peak, profile=prof)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def dense_path(dev) -> dict:
+    """Phase 15: the gate (float32, 2 layers, card = CPU) for three dense
+    families, then each dense config served in bfloat16."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch in DENSE_GATE:
+        t0 = time.perf_counter()
+        out[f"{arch} fp32"] = dense_gate(dev, arch)
+        out[f"{arch} fp32"]["wall_s"] = time.perf_counter() - t0
+        log(f"phase 15a, dense {arch} fp32 (2 layers, full width) ok: "
+            f"{json.dumps(out[f'{arch} fp32'])}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, layers in DENSE_SERVE.items():
+        t0 = time.perf_counter()
+        out[arch] = dense_serve(dev, arch, layers)
+        out[arch]["wall_s"] = time.perf_counter() - t0
+        cut = ("" if layers is None
+               else f" (cut to {layers} of {out[arch]['published_layers']} layers)")
+        log(f"phase 15b, dense {arch} bf16{cut} ok: {json.dumps(out[arch])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the example programs' twins
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_quickstart.py", "torch_intersect_warehouse.py",
+            "torch_streaming_service.py", "torch_moe_sorted_dispatch.py")
+EXAMPLE_SIZES = ("QUICKSTART_N", "INTERSECT_N", "SERVICE_MINUTES", "SERVICE_ROWS")
+
+
+def examples_path() -> dict:
+    """Phase 16: each example twin at its default size on the card, in its
+    own process, the four at once: each must exit 0."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k not in EXAMPLE_SIZES}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(ROOT / "examples" / name)], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True) for name in EXAMPLES}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            lines = text.strip().splitlines()
+            if proc.returncode != 0:
+                raise SystemExit(f"FAIL example {name}: rc {proc.returncode}\n"
+                                 + "\n".join(lines[-40:]))
+            out[name] = dict(done_after_s=time.perf_counter() - t0, last_lines=lines[-2:])
+            log(f"phase 16, {name} ok: {json.dumps(out[name])}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def kernel_records(by_path: dict) -> list[dict]:
     """The kernels' JSON records: each kernel timed and counted on its own
     path, the aggregate's (phase 3) for the aggregate kernels, the merge
@@ -2603,6 +2913,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_path(dev, rows, q18, by_path)
+    del rows, q18
+    gc.collect()
+    torch.cuda.empty_cache()
+    for phase, fn in ((14, lambda: dedup_path(dev, by_path)), (15, lambda: dense_path(dev)),
+                      (16, examples_path)):
+        t0 = time.perf_counter()
+        fn()
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
     kernels = kernel_records(by_path)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,19 @@
+#!/usr/bin/env python3
+"""Compute the JAX package's ``dedup_examples`` results for the cases of
+``tests/test_torch_data.py`` (its ``STORED_CASES``) and store them in
+``tests/data/torch_data_reference.npz``, which that module holds the port's
+corpus dedup against.
+
+Run from the repository root:
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_data_reference.py
+
+``--check`` recomputes every case and compares it with the stored file
+instead of writing it (exit 1 on any difference, bit for bit).
+"""
+import sys
+
+from _stored_reference import main
+
+if __name__ == "__main__":
+    sys.exit(main("test_torch_data", __doc__))

@@ -9,6 +9,10 @@ block's merge sort in shared memory, one thread-block cluster that merges
 its CTAs' runs through distributed shared memory (one launch each, up to
 65,536 keys), and above that, clusters and merge passes through device
 memory.
+
+``bitonic_sort`` / ``bitonic_sort_kv`` are the reference's tile-batch
+sorts: each row of a ``(T, N)`` batch of 32-bit keys sorted, as one
+argsort of ``(row << 32) | key`` through ``ops.argsort_keys``.
 """
 from __future__ import annotations
 
@@ -73,3 +77,42 @@ def argsort_cuda(keys: torch.Tensor) -> torch.Tensor:
             _build.stream_of(keys))
     _build.raise_on(err, f"argsort ({variant}, tile {tile}, cluster {cluster})")
     return perm
+
+
+def _row_major_perm(keys: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts each row of a ``(T, N)`` batch of keys in
+    ``[0, 2^32)`` (the reference's uint32 lanes): one argsort of
+    ``(row << 32) | key`` (stable, so equal keys keep their order), as
+    flat indices whose row ``t`` lies in ``[t N, (t + 1) N)``."""
+    from repro_torch.kernels import ops  # ops imports this module
+
+    if keys.ndim != 2:
+        raise ValueError(f"keys must be a (T, N) batch, got shape {tuple(keys.shape)}")
+    t, n = keys.shape
+    keys = keys.to(torch.int64)
+    if keys.numel():
+        lo, hi = torch.stack([keys.min(), keys.max()]).tolist()
+        if lo < 0 or hi > 0xFFFFFFFF:
+            raise ValueError(f"keys span [{lo}, {hi}]: the tile sort takes 32-bit keys "
+                             "(the reference's uint32 lanes)")
+    rows = torch.arange(t, dtype=torch.int64, device=keys.device)
+    packed = ((rows[:, None] << 32) | keys).reshape(-1)
+    return ops.argsort_keys(packed)
+
+
+def bitonic_sort(keys: torch.Tensor) -> torch.Tensor:
+    """Sort each row of a ``(T, N)`` batch of 32-bit keys (int64 in
+    ``[0, 2^32)``; the reference's EMPTY, ``2^32 - 1``, sorts last)."""
+    perm = _row_major_perm(keys)
+    return keys.reshape(-1)[perm].view(keys.shape)
+
+
+def bitonic_sort_kv(keys: torch.Tensor, vals: torch.Tensor):
+    """Key-sort each row with a payload ``vals`` of the keys' shape moved
+    alongside; returns ``(sorted keys, moved vals)``.  Among equal keys the
+    payload keeps its order (the reference's network leaves that order
+    undefined)."""
+    if vals.shape != keys.shape:
+        raise ValueError(f"vals shape {tuple(vals.shape)} != keys shape {tuple(keys.shape)}")
+    perm = _row_major_perm(keys)
+    return keys.reshape(-1)[perm].view(keys.shape), vals.reshape(-1)[perm].view(vals.shape)

@@ -1,5 +1,6 @@
 """The ``"cuda"`` backend's primitives (counterpart of
-:mod:`repro.kernels.ops`): ``argsort_keys``, ``segmented_combine``,
+:mod:`repro.kernels.ops`): ``argsort_keys`` and ``sort_keys`` (with the
+reference's ``argsort_u32`` / ``sort_u32`` names), ``segmented_combine``,
 ``merge_absorb_sorted``, ``join_probe``, ``moe_grouped_matmul`` and the
 bitonic foil ``merge_absorb_sorted_bitonic``.
 
@@ -44,6 +45,18 @@ def argsort_keys(keys: torch.Tensor) -> torch.Tensor:
     if keys.shape[0]:
         LAUNCHES["argsort"] += 1
     return perm
+
+
+def sort_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Sort an int64 key vector of the port's u32/u64 domain (EMPTY, the
+    domain's top, sorts last): the argsort kernel's permutation, then a
+    gather."""
+    return keys[argsort_keys(keys)]
+
+
+# the reference's u32 names (its registry and older callers use them)
+sort_u32 = sort_keys
+argsort_u32 = argsort_keys
 
 
 def segmented_combine(state: AggState) -> AggState:

@@ -6,7 +6,9 @@ decode against the cache (counterpart of :mod:`repro.launch.serve`).
 
 runs the smoke configuration (``--full`` for the published one) on the CPU
 with the plain versions; without ``--device`` it runs on the card, through
-the MoE block's kernels.
+the MoE block's kernels.  The dense family (``--arch llama3-8b``,
+``qwen2-1.5b``, ``granite-20b``, ``mistral-large-123b``) serves the same
+way, its products through cuBLAS.
 """
 from __future__ import annotations
 
@@ -74,6 +76,14 @@ def generate(params: M.Model, cfg: ModelConfig, prompts, *, gen: int, max_len: i
         logits=torch.stack(kept, 1).numpy() if keep_logits else None)
 
 
+def cache_len(cfg: ModelConfig, positions: int) -> int:
+    """Decode-cache positions for ``positions`` tokens: above one KV chunk
+    of the chunked attention, rounded up to whole chunks (the positions
+    past the filled ones are masked)."""
+    ck = cfg.attn_chunk_k
+    return positions if positions <= ck else -(-positions // ck) * ck
+
+
 def serve(arch: str, *, smoke=True, batch=4, prompt_len=32, gen=16, max_len=None, seed=0,
           device="cuda"):
     """Random weights from ``seed`` (a generator on ``device``), seeded
@@ -81,7 +91,7 @@ def serve(arch: str, *, smoke=True, batch=4, prompt_len=32, gen=16, max_len=None
     ``(gen_ids (B, gen), prefill s, decode s per token)``."""
     cfg = get_config(arch, smoke=smoke)
     dev = resolve_device(device)
-    max_len = max_len or (prompt_len + gen)
+    max_len = cache_len(cfg, max_len or (prompt_len + gen))
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(seed))
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(seed))

@@ -1,6 +1,6 @@
 """Serve-step builders of the port (counterpart of the prefill and serve
 steps of :mod:`repro.launch.steps`; the training steps are not ported,
-ROADMAP Queue 1 item 12).
+ROADMAP Queue 1 item 3d).
 
 ``prefill_step``: forward over the whole prompt, building the decode cache.
 ``serve_step``  : one-token decode against the cache.

@@ -10,7 +10,7 @@ reference's weights without transposes: a projection's ``kernel`` is
 drawn in float32 from an explicit ``torch.Generator`` with the reference's
 scale, then cast.  The reference's activation-sharding ``hint`` is a no-op
 without a mesh and has no counterpart; MLA and M-RoPE are not ported
-(ROADMAP Queue 1 item 12).  Serving only: parameters carry no gradient.
+(ROADMAP Queue 1 items 3b and 3c).  Serving only: parameters carry no gradient.
 """
 from __future__ import annotations
 
@@ -164,7 +164,7 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.
     k = dense(p.wk, x).reshape(b, sq, kh, dh)
     v = dense(p.wv, x).reshape(b, sq, kh, dh)
     if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 12)")
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 3c)")
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

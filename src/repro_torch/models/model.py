@@ -3,10 +3,13 @@ forward, the decode cache and the decode step (counterpart of
 :mod:`repro.models.model`).
 
 Ported families: ``moe`` with ``first_k_dense == 0`` (attention + MoE in
-every layer; ``qwen3-moe-30b-a3b``) and ``dense`` (attention + MLP).
-Hybrid, SSM, MLA, MTP, dense-prefix MoE stacks and modality front ends
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 12), as do training,
-the loss and the optimiser.
+every layer; ``qwen3-moe-30b-a3b``) and ``dense`` (attention + MLP, with
+QKV bias, gelu or swiglu, tied embeddings and a duplicated decode cache:
+``llama3-8b``, ``qwen2-1.5b``, ``mistral-large-123b``, ``granite-20b``).
+MLA, MTP and dense-prefix MoE stacks raise ``NotImplementedError`` naming
+ROADMAP Queue 1 item 3b; hybrid, SSM, encoder and VLM families, M-RoPE and
+modality front ends item 3c; training, the loss and the optimiser are
+item 3d.
 
 The model runs where its weights are: :func:`init` draws them on the
 generator's device, :func:`params_from_numpy` copies the reference's onto
@@ -31,22 +34,29 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not serve yet,
+    each piece with the ROADMAP Queue 1 item that ports it: 3b for
+    deepseek-v3's blocks (MLA, MTP, dense prefix layers), 3c for the SSM,
+    hybrid, encoder and VLM families."""
     missing = []
     if cfg.family not in ("moe", "dense"):
-        missing.append(f"family {cfg.family!r}")
+        missing.append((f"family {cfg.family!r}", "3c"))
     if cfg.family == "moe" and (cfg.moe is None or cfg.moe.first_k_dense):
-        missing.append("MoE stacks with dense prefix layers")
+        missing.append(("MoE stacks with dense prefix layers", "3b"))
     if cfg.family == "dense" and cfg.moe is not None:
-        missing.append("a dense family with an MoE config")
-    for flag, what in ((cfg.mla is not None, "MLA"), (cfg.ssm is not None, "SSM layers"),
-                       (cfg.mtp, "multi-token prediction"),
-                       (cfg.frontend_stub, "modality front ends"),
-                       (cfg.rope == "mrope", "M-RoPE")):
+        missing.append(("a dense family with an MoE config", "3b"))
+    for flag, what, item in ((cfg.mla is not None, "MLA", "3b"),
+                             (cfg.ssm is not None, "SSM layers", "3c"),
+                             (cfg.mtp, "multi-token prediction", "3b"),
+                             (cfg.frontend_stub, "modality front ends", "3c"),
+                             (cfg.rope == "mrope", "M-RoPE", "3c")):
         if flag:
-            missing.append(what)
+            missing.append((what, item))
     if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not ported yet "
-                                  "(ROADMAP Queue 1 item 12)")
+        items = sorted({item for _, item in missing})
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(what for what, _ in missing)} not ported yet "
+            f"(ROADMAP Queue 1 item {' and '.join(items)})")
 
 
 class Model(nn.Module):

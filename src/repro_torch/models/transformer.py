@@ -4,7 +4,7 @@
 A block is ``attn_moe`` (attention + MoE) or ``attn_mlp`` (attention +
 MLP), pre-norm with residuals.  The stack is an ``nn.ModuleList`` looped
 in Python: serving runs eagerly, so there is no scan and no remat.
-Mamba blocks are not ported (ROADMAP Queue 1 item 12).
+Mamba blocks are not ported (ROADMAP Queue 1 item 3c).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ class Block(nn.Module):
         super().__init__()
         if kind not in ("attn_moe", "attn_mlp"):
             raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
+                                      "(ROADMAP Queue 1 item 3c)")
         self.kind = kind
         kw = dict(dtype=dtype, device=device)
         self.ln1 = L.Norm(cfg.d_model, **kw)

@@ -31,6 +31,7 @@ from repro_torch.core.types import (
     take,
 )
 from repro_torch.configs import get_config
+from repro_torch.data import pipeline as data_pipeline
 from repro_torch.kernels import (
     bitonic_sort,
     grouped_matmul,
@@ -557,6 +558,73 @@ def test_serve_full_width_two_layers_on_the_card_matches_cpu(dev):
     a = generate(card, cfg, prompts, gen=4, max_len=36, keep_logits=True)
     assert ops.LAUNCHES["grouped_matmul_simt"] == 3 * 2 * 4 and ops.LAUNCHES["argsort"] == 2 * 4
     b = generate(host, cfg, prompts, gen=4, max_len=36, force=a.tokens[:, :-1],
+                 keep_logits=True)
+    np.testing.assert_allclose(a.logits, b.logits, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1537, 65536, 1 << 20])
+@pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
+def test_sort_keys_on_the_card_matches_plain(dev, n, key_dtype):
+    """``ops.sort_keys`` (one argsort launch and a gather) against its plain
+    version on the CPU, EMPTY rows included."""
+    keys = _state(dev, n, key_dtype, max(2, n // 3), sort=False).keys
+    ops.reset_launch_counts()
+    got = ops.sort_keys(keys)
+    assert ops.LAUNCHES["argsort"] == 1
+    assert torch.equal(got.cpu(), ops.sort_keys(keys.cpu()))
+
+
+@pytest.mark.parametrize("t,n,domain", [(1, 2, 2**32), (3, 4096, 2**32), (64, 4096, 2**32),
+                                        (2, 512, 2), (64, 4096, 100)])
+def test_bitonic_sorts_on_the_card_match_plain(dev, t, n, domain):
+    """The tile-batch sorts: one argsort launch each, the sorted rows equal
+    the plain version's, the payload the plain version's (the argsort is
+    stable on both)."""
+    keys = torch.from_numpy(RNG.integers(0, domain, (t, n))).to(dev)
+    vals = torch.arange(t * n, device=dev).view(t, n)
+    ops.reset_launch_counts()
+    got = bitonic_sort.bitonic_sort(keys)
+    sk, sv = bitonic_sort.bitonic_sort_kv(keys, vals)
+    assert ops.LAUNCHES["argsort"] == 2
+    want_k, want_v = bitonic_sort.bitonic_sort_kv(keys.cpu(), vals.cpu())
+    assert torch.equal(got.cpu(), want_k) and torch.equal(sk.cpu(), want_k)
+    assert torch.equal(sv.cpu(), want_v)
+
+
+def test_dedup_on_the_card_matches_cpu(dev):
+    """Fingerprints, kept documents and ``SpillStats`` of a corpus that
+    spills (M = 2^10 over 20,000 documents) equal the CPU run's."""
+    docs = data_pipeline.SyntheticCorpus(vocab=128256, n_docs=20_000, dup_rate=0.3, seed=2,
+                                         max_len=256).documents()
+    np.testing.assert_array_equal(data_pipeline.fingerprints(docs, device=dev),
+                                  data_pipeline.fingerprints(docs, device="cpu"))
+    cfg = ExecConfig(memory_rows=1 << 10, page_rows=64, fanin=4, batch_rows=256)
+    ops.reset_launch_counts()
+    card, s_card = data_pipeline.dedup_examples(docs, cfg, device=dev)
+    assert all(ops.LAUNCHES[k] > 0 for k in ("argsort", "segmented_combine", "merge_absorb"))
+    host, s_host = data_pipeline.dedup_examples(docs, cfg, device="cpu")
+    assert s_card.as_dict() == s_host.as_dict() and s_card.runs_generated > 4
+    assert len(card) == len(host) and all(a is b for a, b in zip(card, host))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2-1.5b", "granite-20b",
+                                  "mistral-large-123b"])
+def test_dense_serve_on_the_card_matches_cpu(dev, arch):
+    """Each dense smoke config, with its full config's activation, cache
+    duplication, bias and tying, in float32: the card and the CPU on the
+    same weights, the CPU run teacher-forced with the card's tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    full = get_config(arch)
+    cfg = dc.replace(get_config(arch, smoke=True), act=full.act, kv_dup=full.kv_dup,
+                     qkv_bias=full.qkv_bias, tie_embeddings=full.tie_embeddings)
+    card = M.init(cfg, torch.Generator(device=dev).manual_seed(7))
+    host = M.Model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    prompts = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(7))
+    a = generate(card, cfg, prompts, gen=5, max_len=64, keep_logits=True)
+    b = generate(host, cfg, prompts, gen=5, max_len=64, force=a.tokens[:, :-1],
                  keep_logits=True)
     np.testing.assert_allclose(a.logits, b.logits, rtol=1e-3, atol=1e-3)
     np.testing.assert_array_equal(a.tokens, b.tokens)

@@ -187,9 +187,9 @@ def test_init_cache_layout_and_unported_configs(ref):
     c = M.init_cache(cfg, 3, 24, device="cpu")
     assert c["k"].shape == (cfg.n_layers, 3, 24, cfg.n_kv_heads, cfg.d_head)
     assert c["k"].dtype == torch.bfloat16 and c["index"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
         get_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
         M.init(dc.replace(cfg, family="ssm"), torch.Generator().manual_seed(0))
 
 
