@@ -16,8 +16,10 @@ with a non-zero exit):
    look-back across the merge-absorb's tiles gets wrong (the combine runs
    the same pass); the probe's EMPTY tails, hits at the
    right side's ends, keys above it, empty sides; the grouped matmul at
-   the four serve shapes, capacities 8 to 264 and widths that are no
-   multiple of 64, on the variant its dtype and widths call for);
+   the four serve shapes, deepseek-v3's four in bfloat16 (256 experts,
+   7168 -> 2048 and 2048 -> 7168 at C = 8 and 40), capacities 8 to 264 and
+   widths that are no multiple of 64, on the variant its dtype and widths
+   call for, ``torch.bmm`` beside the serve shapes);
 3. the main path: ``repro_torch.aggregate`` of TPC-H ``lineitem`` at SF 10
    grouped by ``l_orderkey`` (Q18's inner aggregate: count and sum of
    ``l_quantity``), checked exactly against a NumPy oracle, with every
@@ -148,7 +150,21 @@ with a non-zero exit):
    weight bytes, init, prefill, decode ms a token, tokens/s, peak memory
    and the device's idle share;
 16. the example twins (``examples/torch_*.py``) at their default sizes on
-   the card, each in its own process, the four at once: each must exit 0.
+   the card, each in its own process, the four at once: each must exit 0;
+17. the remaining families: a) deepseek-v3-671b in bfloat16 at full width
+   cut to 5 layers (its 3 dense-prefix layers with MLA, then 2 MoE layers
+   of 256 experts with a shared one; MTP's weights; 54.6 GB), batch 4,
+   prompt 256, 16 tokens through the kernels: 3 grouped matmuls (all on
+   the tensor cores) and 1 argsort an MoE layer a step, finite logits, the
+   serve's figures and the device's idle share; b) its float32 gate, a
+   dense-prefix layer and an MoE layer (58.5 GB), the kernels against the
+   plain versions on the card as phase 9's gate; c) mamba2-2.7b (64
+   layers), zamba2-2.7b (54) and qwen2-vl-2b (28, M-RoPE, prompts as
+   embeddings) served in bfloat16 at full width as phase 15b, and
+   hubert-xlarge's (48) forward over 4 x 256 frame embeddings (an encoder
+   has no decode step); d) float32 gates at full width, card = CPU within
+   rtol/atol 1e-3: mamba2 and qwen2-vl at 2 layers served teacher-forced,
+   zamba2 at 6 (one group and its shared block), hubert's forward at 2.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -159,7 +175,8 @@ the inputs of the shape that carried most rows through them (``settle``):
 the aggregate kernels on phase 3's, the probe on phase 6's, the bitonic
 foil on phase 8's, the grouped matmul on phase 9's, the argsort and the
 grouped matmul at every shape a path gave them, with the other paths'
-times beside (phase 14's key sorts among them), and the operations one call puts on the card
+times beside (phase 14's key sorts and phase 17's deepseek-v3 shapes
+among them), and the operations one call puts on the card
 (``torch.profiler``; the argsort must be one kernel up to 65,536 keys,
 the combine two kernels and a memset, and the foil its plan's).  The
 last lines are the kernels' JSON record, the card's name and power
@@ -535,62 +552,83 @@ def gmm_tolerance(x, w, capacity: int):
     return want32, tol
 
 
+GMM_BLOCK_ELEMENTS = 1 << 26  # expert weights held in float32 at once by gmm_error
+
+
 def gmm_error(x, w, capacity: int, got=None) -> tuple[float, float]:
     """The grouped-matmul kernel (or its output ``got``) against the float32
     product: (max |kernel - plain version|, max |kernel - product| in units
-    of :func:`gmm_tolerance`)."""
+    of :func:`gmm_tolerance`).  Compared a block of experts at a time, so
+    the float32 copies stay under ``GMM_BLOCK_ELEMENTS`` weights (deepseek-v3's
+    expert tensor is 7.5 GB in bfloat16)."""
     from repro_torch.kernels import grouped_matmul
 
     if got is None:
         got = grouped_matmul.grouped_matmul_cuda(x, w, capacity=capacity)
     if got.numel() == 0:
         return 0.0, 0.0
-    want32, tol = gmm_tolerance(x, w, capacity)
-    ratio = float(((got.float() - want32).abs() / tol).max())
-    return float((got.float() - want32.to(x.dtype).float()).abs().max()), ratio
+    e, d, f = w.shape
+    step = max(1, GMM_BLOCK_ELEMENTS // (d * f))
+    ratio = 0.0
+    for lo in range(0, e, step):
+        rows = slice(lo * capacity, (lo + step) * capacity)
+        want32, tol = gmm_tolerance(x[rows], w[lo:lo + step], capacity)
+        ratio = max(ratio, float(((got[rows].float() - want32).abs() / tol).max()))
+    plain = grouped_matmul.grouped_matmul_plain(x, w, capacity=capacity)
+    return float((got.float() - plain.float()).abs().max()), ratio
+
+
+# deepseek-v3's serve shapes (E, C, D, F): wg/wi 7168 -> 2048 and wo 2048 ->
+# 7168 at decode's C = 8 and prefill's C = 40 (batch 4, prompt 256), bfloat16
+DEEPSEEK_GMM_SHAPES = ((256, 8, 7168, 2048), (256, 8, 2048, 7168), (256, 40, 7168, 2048),
+                       (256, 40, 2048, 7168))
 
 
 def check_grouped_matmul(dev) -> None:
     """The four serve shapes at the served model's widths (wg/wi 2048 ->
-    768 and wo 768 -> 2048 at decode's C = 8 and prefill's C = 64),
-    capacities 13, 72 and 264 (two N tiles of the tensor cores), D and F
-    that are multiples of 8 but not of 64, widths that are no multiple of
-    8 (the CUDA-core variant in bfloat16 too), one expert; bfloat16 and
-    float32; padding rows zero; each on the variant its dtype and widths
-    call for and within :func:`gmm_tolerance` of the float32 product."""
+    768 and wo 768 -> 2048 at decode's C = 8 and prefill's C = 64), and
+    deepseek-v3's four in bfloat16 (7.5 GB of weights a call), capacities
+    13, 72 and 264 (two N tiles of the tensor cores), D and F that are
+    multiples of 8 but not of 64, widths that are no multiple of 8 (the
+    CUDA-core variant in bfloat16 too), one expert; bfloat16 and float32;
+    padding rows zero; each on the variant its dtype and widths call for and
+    within :func:`gmm_tolerance` of the float32 product, ``torch.bmm``
+    logged beside the serve shapes."""
     import torch
 
     from repro_torch.kernels import grouped_matmul
+    from repro_torch.models.layers import normal
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    for dtype in (torch.bfloat16, torch.float32):
-        # bf16: the variant bfloat16 takes at these widths (float32: the CUDA cores)
-        for e, c, d, f, bf16 in ((128, 8, 2048, 768, "wgmma"), (128, 8, 768, 2048, "wgmma"),
-                                 (128, 64, 2048, 768, "wgmma"), (128, 64, 768, 2048, "wgmma"),
-                                 (3, 13, 200, 136, "wgmma"), (5, 72, 136, 200, "wgmma"),
-                                 (2, 264, 200, 136, "wgmma"), (16, 72, 200, 130, "simt"),
-                                 (1, 64, 96, 257, "simt"), (3, 13, 1000, 1000, "wgmma")):
-            x = torch.randn((e * c, d), generator=gen, device=dev).to(dtype)
-            x.view(e, c, d)[:, c // 2:] = 0  # capacity padding
-            w = (torch.randn((e, d, f), generator=gen, device=dev) / math.sqrt(d)).to(dtype)
-            want = bf16 if dtype == torch.bfloat16 else "simt"
-            got, launched = grouped_matmul.grouped_matmul_launch(x, w, capacity=c)
-            if launched != want:
-                raise SystemExit(f"FAIL grouped_matmul {dtype} D={d} F={f}: the {launched} "
-                                 f"variant, expected {want}")
-            err, ratio = gmm_error(x, w, c, got=got)
-            if ratio > 1.0:
-                raise SystemExit(f"FAIL grouped_matmul {dtype} E={e} C={c} D={d} F={f} "
-                                 f"({want}): {ratio:.3f} x the tolerance (max |diff| {err})")
-            if e == 128:  # the library's product against the same tolerance
-                ref = torch.bmm(x.view(e, c, d), w).view(e * c, f)
-                _, lib = gmm_error(x, w, c, got=ref)
-                plain = grouped_matmul.grouped_matmul_plain(x, w, capacity=c)
-                log(f"grouped_matmul {dtype} C={c} {d}->{f} ({want}): kernel {ratio:.3f}, "
-                    f"torch.bmm {lib:.3f} x the tolerance; max |kernel - plain| {err}; "
-                    f"outputs equal to the plain version's: kernel "
-                    f"{float((got == plain).float().mean()):.4f}, torch.bmm "
-                    f"{float((ref == plain).float().mean()):.4f}")
+    # bf16: the variant bfloat16 takes at these widths (float32: the CUDA cores)
+    cases = [(dtype, *shape) for dtype in (torch.bfloat16, torch.float32) for shape in (
+        (128, 8, 2048, 768, "wgmma"), (128, 8, 768, 2048, "wgmma"),
+        (128, 64, 2048, 768, "wgmma"), (128, 64, 768, 2048, "wgmma"),
+        (3, 13, 200, 136, "wgmma"), (5, 72, 136, 200, "wgmma"), (2, 264, 200, 136, "wgmma"),
+        (16, 72, 200, 130, "simt"), (1, 64, 96, 257, "simt"), (3, 13, 1000, 1000, "wgmma"))]
+    cases += [(torch.bfloat16, *shape, "wgmma") for shape in DEEPSEEK_GMM_SHAPES]
+    for dtype, e, c, d, f, bf16 in cases:
+        x = torch.randn((e * c, d), generator=gen, device=dev).to(dtype)
+        x.view(e, c, d)[:, c // 2:] = 0  # capacity padding
+        w = normal(gen, (e, d, f), 1.0 / math.sqrt(d), dtype, dev)
+        want = bf16 if dtype == torch.bfloat16 else "simt"
+        got, launched = grouped_matmul.grouped_matmul_launch(x, w, capacity=c)
+        if launched != want:
+            raise SystemExit(f"FAIL grouped_matmul {dtype} D={d} F={f}: the {launched} "
+                             f"variant, expected {want}")
+        err, ratio = gmm_error(x, w, c, got=got)
+        if ratio > 1.0:
+            raise SystemExit(f"FAIL grouped_matmul {dtype} E={e} C={c} D={d} F={f} "
+                             f"({want}): {ratio:.3f} x the tolerance (max |diff| {err})")
+        if e >= 128:  # the serve shapes: the library's product against the same tolerance
+            ref = torch.bmm(x.view(e, c, d), w).view(e * c, f)
+            _, lib = gmm_error(x, w, c, got=ref)
+            plain = grouped_matmul.grouped_matmul_plain(x, w, capacity=c)
+            log(f"grouped_matmul {dtype} C={c} {d}->{f} ({want}): kernel {ratio:.3f}, "
+                f"torch.bmm {lib:.3f} x the tolerance; max |kernel - plain| {err}; "
+                f"outputs equal to the plain version's: kernel "
+                f"{float((got == plain).float().mean()):.4f}, torch.bmm "
+                f"{float((ref == plain).float().mean()):.4f}")
 
 
 def probe_keys(rng, n, m, key_dtype, device):
@@ -677,8 +715,10 @@ def _kernel_table():
         "grouped_matmul": (grouped_matmul, "grouped_matmul_launch", "grouped_matmul_plain",
                            lambda x, w, capacity: (x.shape[0], x.shape[1], w.shape[2], capacity,
                                                    str(x.dtype).replace("torch.", "")),
-                           lambda x, w, capacity: ((x.clone(), w.clone()),
-                                                   {"capacity": capacity})),
+                           # the expert weights do not change while a model
+                           # serves: a reference, not a copy (deepseek-v3's
+                           # are 7.5 GB a tensor)
+                           lambda x, w, capacity: ((x.clone(), w), {"capacity": capacity})),
         "merge_absorb_bitonic": (merge_aggregate, "merge_absorb_bitonic_cuda",
                                  "merge_absorb_bitonic_plain",
                                  lambda a, b: (a.capacity, b.capacity, a.widths),
@@ -1314,9 +1354,10 @@ def serve_pair(model, cfg, prompts, capture_as: str):
     kernels' tokens.  Returns both generations, the launches of the kernel
     run and both runs' routes."""
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import cache_len, generate
 
-    kw = dict(gen=SERVE["gen"], max_len=SERVE["prompt_len"] + SERVE["gen"], keep_logits=True)
+    kw = dict(gen=SERVE["gen"], max_len=cache_len(cfg, SERVE["prompt_len"] + SERVE["gen"]),
+              keep_logits=True)
     ops.reset_launch_counts()
     with capture(capture_as), routes() as ra:
         a = generate(model, cfg, prompts, backend="cuda", **kw)
@@ -1324,6 +1365,23 @@ def serve_pair(model, cfg, prompts, capture_as: str):
     with routes() as rb:
         b = generate(model, cfg, prompts, backend="torch", force=a.tokens[:, :-1], **kw)
     return a, b, launches, ra, rb
+
+
+def hold_gate(name: str, a, p, ra, rb) -> float:
+    """A float32 gate of :func:`serve_pair`: the kernels and the plain
+    versions routed every token to the same experts, their logits agree
+    within rtol/atol 1e-3 and their greedy tokens are equal.  Returns the
+    largest logit difference."""
+    import torch
+
+    if len(ra) != len(rb) or not all(torch.equal(x, y) for x, y in zip(ra, rb)):
+        raise SystemExit(f"FAIL {name}: the kernels and the plain versions routed tokens to "
+                         "different experts")
+    diff = float(np.abs(a.logits - p.logits).max())
+    if not np.allclose(a.logits, p.logits, rtol=1e-3, atol=1e-3):
+        raise SystemExit(f"FAIL {name}: logits differ by {diff} (rtol/atol 1e-3)")
+    check_equal(f"{name} greedy tokens", a.tokens, p.tokens)
+    return diff
 
 
 def device_profile(window: str, fn, kernels: dict) -> dict:
@@ -1400,14 +1458,7 @@ def serve_path(dev) -> dict:
     model = M.init(cfg2, torch.Generator(device=dev).manual_seed(SEED))
     a, p, _, ra, rb = serve_pair(model, cfg2, prompts, "serve fp32")
     del model
-    if len(ra) != len(rb) or not all(torch.equal(x, y) for x, y in zip(ra, rb)):
-        raise SystemExit("FAIL serve fp32: the kernels and the plain versions routed "
-                         "tokens to different experts")
-    if not np.allclose(a.logits, p.logits, rtol=1e-3, atol=1e-3):
-        raise SystemExit(f"FAIL serve fp32: logits differ by {np.abs(a.logits - p.logits).max()}"
-                         " (rtol/atol 1e-3)")
-    check_equal("serve fp32 greedy tokens", a.tokens, p.tokens)
-    fp32 = dict(layers=2, max_abs_logit_diff=float(np.abs(a.logits - p.logits).max()),
+    fp32 = dict(layers=2, max_abs_logit_diff=hold_gate("serve fp32", a, p, ra, rb),
                 router_calls=len(ra))
     log(f"serve fp32 (2 layers, full width) ok: {json.dumps(fp32)}")
     settle("serve fp32")
@@ -2683,10 +2734,21 @@ DENSE_SERVE = {"llama3-8b": None, "qwen2-1.5b": None, "granite-20b": None,
                "mistral-large-123b": 16}
 
 
-def dense_gate(dev, arch: str) -> dict:
-    """A 2-layer float32 copy of ``arch`` at full width served on the card
-    and, on the same weights, on the CPU teacher-forced with the card's
-    tokens: logits within rtol/atol 1e-3, greedy tokens equal."""
+def serve_prompts(cfg, b: int, s: int):
+    """Seeded prompt ids (B, S), or for a front-end stub seeded (B, S, D)
+    embeddings at the scale of the reference's serve table, N(0, 0.02^2)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    if cfg.frontend_stub:
+        return torch.randn((b, s, cfg.d_model), generator=gen) * 0.02
+    return torch.randint(0, cfg.vocab, (b, s), generator=gen)
+
+
+def dense_gate(dev, arch: str, layers: int = 2) -> dict:
+    """A float32 copy of ``arch`` at full width cut to ``layers`` served on
+    the card and, on the same weights, on the CPU teacher-forced with the
+    card's tokens: logits within rtol/atol 1e-3, greedy tokens equal."""
     import dataclasses
 
     import torch
@@ -2695,9 +2757,9 @@ def dense_gate(dev, arch: str) -> dict:
     from repro_torch.launch.serve import cache_len, generate
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
     b, s, gen = (DENSE_GATE_SERVE[k] for k in ("batch", "prompt_len", "gen"))
-    prompts = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(SEED))
+    prompts = serve_prompts(cfg, b, s)
     card = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
     host = M.Model(cfg, device="cpu")
     host.load_state_dict(card.state_dict())
@@ -2710,15 +2772,16 @@ def dense_gate(dev, arch: str) -> dict:
     if not np.allclose(a.logits, p.logits, rtol=1e-3, atol=1e-3):
         raise SystemExit(f"FAIL dense {arch} fp32: logits differ by {diff} (rtol/atol 1e-3)")
     check_equal(f"dense {arch} fp32 greedy tokens", a.tokens, p.tokens)
-    flags = {f: getattr(cfg, f) for f in ("n_kv_heads", "kv_dup", "qkv_bias", "act",
-                                          "tie_embeddings")}
-    return dict(layers=2, **flags, max_abs_logit_diff=diff)
+    flags = {f: getattr(cfg, f) for f in ("family", "n_kv_heads", "kv_dup", "qkv_bias", "act",
+                                          "tie_embeddings", "rope", "frontend_stub")}
+    return dict(layers=layers, **flags, max_abs_logit_diff=diff)
 
 
 def dense_serve(dev, arch: str, layers) -> dict:
     """``arch`` in bfloat16 at full width (``layers`` of them, or all):
-    seeded weights, prefill of 4 x 256 tokens and greedy decode to 16;
-    finite logits, tokens inside the vocabulary, and the serve's figures."""
+    seeded weights, prefill of 4 x 256 tokens (embeddings for a front-end
+    stub) and greedy decode to 16; finite logits, tokens inside the
+    vocabulary, and the serve's figures."""
     import dataclasses
 
     import torch
@@ -2732,7 +2795,7 @@ def dense_serve(dev, arch: str, layers) -> dict:
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
-    prompts = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(SEED))
+    prompts = serve_prompts(cfg, b, s)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
@@ -2821,6 +2884,220 @@ def examples_path() -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: every remaining model family
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v3-671b"
+# bfloat16 at full width: the 3 dense-prefix layers and 2 MoE layers, 27.30 G
+# parameters with MTP's (54.6 GB); the published 61 layers are 1.34 TB
+DEEPSEEK_LAYERS = 5
+# its float32 gate: 1 dense-prefix layer and 1 MoE layer, 14.63 G parameters (58.5 GB)
+DEEPSEEK_GATE = dict(n_layers=2, first_k_dense=1)
+FAMILIES = ("mamba2-2.7b", "zamba2-2.7b", "qwen2-vl-2b", "hubert-xlarge")  # bf16, published depth
+# float32 gates at full width, card = CPU: layers (zamba2's 6: one group and the shared block)
+FAMILY_GATE = {"mamba2-2.7b": 2, "zamba2-2.7b": 6, "qwen2-vl-2b": 2, "hubert-xlarge": 2}
+
+
+def deepseek_serve(dev) -> tuple[dict, dict]:
+    """deepseek-v3-671b in bfloat16 at full width cut to ``DEEPSEEK_LAYERS``:
+    seeded weights, prefill of 4 x 256 tokens and greedy decode to 16
+    through the kernels (launches counted from zero, inputs captured), then
+    the serve's figures and the device profile of a prefill and two steps;
+    the kernels held against their plain versions on the captured inputs.
+    Returns the figures and the launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import cache_len, generate
+    from repro_torch.models import model as M
+
+    cfg = get_config(DEEPSEEK)
+    published = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=DEEPSEEK_LAYERS)
+    b, s, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    prompts = serve_prompts(cfg, b, s)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    _sync()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in model.parameters())
+    ops.reset_launch_counts()
+    with capture("deepseek"):
+        a = generate(model, cfg, prompts, gen=gen, max_len=cache_len(cfg, s + gen),
+                     backend="cuda", keep_logits=True)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(a.logits).all():
+        raise SystemExit("FAIL deepseek bf16: non-finite logits")
+    if a.tokens.min() < 0 or a.tokens.max() >= cfg.vocab:
+        raise SystemExit("FAIL deepseek bf16: tokens outside the vocabulary")
+    moe_layers = cfg.n_layers - cfg.moe.first_k_dense
+    want = {"grouped_matmul": 3 * moe_layers * gen, "grouped_matmul_simt": 0,
+            "argsort": moe_layers * gen}
+    require_launches("deepseek", launches, ("grouped_matmul", "argsort"))
+    if any(launches[k] != v for k, v in want.items()):
+        raise SystemExit(f"FAIL deepseek: launches {launches}, expected {want}")
+    prof = device_profile("prefill + 2 decode steps", lambda: generate(
+        model, cfg, prompts, gen=3, max_len=cache_len(cfg, s + 3), backend="cuda"),
+        {"grouped_matmul": ("grouped_matmul",), "argsort": ARGSORT_KERNELS})
+    PROFILES["deepseek"] = prof
+    info = dict(arch=DEEPSEEK, layers=cfg.n_layers, published_layers=published,
+                dense_prefix_layers=cfg.moe.first_k_dense, dtype=cfg.dtype, batch=b,
+                prompt_len=s, gen=gen, weight_bytes=weights, param_count=cfg.param_count(),
+                init_s=init_s, prefill_s=a.t_prefill, decode_ms_per_token=a.t_decode * 1e3,
+                decode_tokens_per_s=b / a.t_decode,
+                generated_tokens_per_s=b * gen / (a.t_prefill + (gen - 1) * a.t_decode),
+                max_memory_allocated=peak, launches=launches, profile=prof)
+    del model, a
+    gc.collect()
+    torch.cuda.empty_cache()
+    settle("deepseek", ("grouped_matmul", "argsort"))
+    return info, launches
+
+
+def deepseek_gate(dev) -> tuple[dict, dict]:
+    """deepseek-v3-671b in float32 at full width cut to ``DEEPSEEK_GATE``
+    (a dense-prefix layer, then an MoE layer) served with the kernels and,
+    teacher-forced on the same weights, with the plain versions on the card
+    (:func:`hold_gate`)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(DEEPSEEK)
+    cfg = dataclasses.replace(cfg, n_layers=DEEPSEEK_GATE["n_layers"], dtype="float32",
+                              moe=dataclasses.replace(
+                                  cfg.moe, first_k_dense=DEEPSEEK_GATE["first_k_dense"]))
+    prompts = serve_prompts(cfg, SERVE["batch"], SERVE["prompt_len"])
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    weights = sum(t.numel() * t.element_size() for t in model.parameters())
+    a, p, launches, ra, rb = serve_pair(model, cfg, prompts, "deepseek fp32")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = dict(layers=cfg.n_layers, dense_prefix_layers=cfg.moe.first_k_dense,
+                weight_bytes=weights, param_count=cfg.param_count(),
+                max_abs_logit_diff=hold_gate("deepseek fp32", a, p, ra, rb),
+                router_calls=len(ra), launches=launches)
+    require_launches("deepseek fp32", launches, ("grouped_matmul_simt", "argsort"))
+    settle("deepseek fp32")
+    return info, launches
+
+
+def encoder_forward(dev, arch: str) -> dict:
+    """An encoder in bfloat16 at full width and published depth: its forward
+    over 4 x 256 seeded frame embeddings (no decode step: ``shape_skips``),
+    finite logits of the frame classes, with the wall, peak memory and the
+    device's idle share."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    frames = serve_prompts(cfg, SERVE["batch"], SERVE["prompt_len"]).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    _sync()
+    init_s = time.perf_counter() - t0
+    M.forward(model, cfg, frames)  # warm
+    _sync()
+    t0 = time.perf_counter()
+    logits, _, _ = M.forward(model, cfg, frames)
+    _sync()
+    forward_s = time.perf_counter() - t0
+    if logits.shape != (*frames.shape[:2], cfg.vocab) or not torch.isfinite(logits).all():
+        raise SystemExit(f"FAIL {arch} bf16: logits {tuple(logits.shape)}, finite "
+                         f"{bool(torch.isfinite(logits).all())}")
+    info = dict(arch=arch, layers=cfg.n_layers, dtype=cfg.dtype, frames=list(frames.shape),
+                weight_bytes=sum(t.numel() * t.element_size() for t in model.parameters()),
+                param_count=cfg.param_count(), init_s=init_s, forward_s=forward_s,
+                frames_per_s=frames.shape[0] * frames.shape[1] / forward_s,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                profile=device_profile("forward", lambda: M.forward(model, cfg, frames), {}))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def encoder_gate(dev, arch: str, layers: int) -> dict:
+    """An encoder in float32 at full width cut to ``layers``: the forward
+    over 4 x 256 frame embeddings on the card and, on the same weights, on
+    the CPU: logits within rtol/atol 1e-3."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers, dtype="float32")
+    frames = serve_prompts(cfg, SERVE["batch"], SERVE["prompt_len"])
+    card = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    host = M.Model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    a = M.forward(card, cfg, frames)[0].cpu().numpy()
+    del card
+    p = M.forward(host, cfg, frames)[0].numpy()
+    diff = float(np.abs(a - p).max())
+    if not np.allclose(a, p, rtol=1e-3, atol=1e-3):
+        raise SystemExit(f"FAIL {arch} fp32: logits differ by {diff} (rtol/atol 1e-3)")
+    return dict(layers=layers, causal=cfg.causal, act=cfg.act, max_abs_logit_diff=diff)
+
+
+def family_path(dev, by_path: dict) -> dict:
+    """Phase 17: deepseek-v3 served in bfloat16 (5 layers) through the
+    kernels and its float32 gate (kernels = plain); mamba2, zamba2 and
+    qwen2-vl served in bfloat16 at their published depth and hubert's
+    forward; then the float32 gates of those four, card = CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import shape_skips
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in float32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for label, fn in (("a", deepseek_serve), ("b", deepseek_gate)):
+        t0 = time.perf_counter()
+        name = DEEPSEEK if label == "a" else f"{DEEPSEEK} fp32"
+        out[name], by_path["deepseek" if label == "a" else "deepseek fp32"] = fn(dev)
+        out[name]["wall_s"] = time.perf_counter() - t0
+        log(f"phase 17{label}, {name} ok: {json.dumps(out[name])}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        if shape_skips(get_config(arch), "decode_32k"):  # an encoder: no decode step
+            out[arch] = encoder_forward(dev, arch)
+        else:
+            out[arch] = dense_serve(dev, arch, None)
+        out[arch]["wall_s"] = time.perf_counter() - t0
+        log(f"phase 17c, {arch} bf16 ok: {json.dumps(out[arch])}")
+    for arch, layers in FAMILY_GATE.items():
+        t0 = time.perf_counter()
+        if shape_skips(get_config(arch), "decode_32k"):
+            out[f"{arch} fp32"] = encoder_gate(dev, arch, layers)
+        else:
+            out[f"{arch} fp32"] = dense_gate(dev, arch, layers)
+        out[f"{arch} fp32"]["wall_s"] = time.perf_counter() - t0
+        log(f"phase 17d, {arch} fp32 ({layers} layers, full width) ok: "
+            f"{json.dumps(out[f'{arch} fp32'])}")
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2917,7 +3194,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for phase, fn in ((14, lambda: dedup_path(dev, by_path)), (15, lambda: dense_path(dev)),
-                      (16, examples_path)):
+                      (16, examples_path), (17, lambda: family_path(dev, by_path))):
         t0 = time.perf_counter()
         fn()
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")

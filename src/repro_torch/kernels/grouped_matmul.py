@@ -53,12 +53,24 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor, capacity: int) -> None:
                          f"{tuple(w.shape)}")
 
 
+PLAIN_BLOCK_ELEMENTS = 1 << 28  # the most weights cast to float32 at once (1 GB)
+
+
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> torch.Tensor:
-    """``einsum("ecd,edf->ecf")`` in float32, cast back to x's dtype."""
+    """``einsum("ecd,edf->ecf")`` in float32, cast back to x's dtype.  A
+    bfloat16 ``w`` is cast a block of experts at a time (at most
+    ``PLAIN_BLOCK_ELEMENTS`` weights), so the float32 copy stays bounded:
+    deepseek-v3's (256, 7168, 2048) expert tensor would be 15 GB whole."""
     _check_shapes(x, w, capacity)
     e, d, f = w.shape
-    out = torch.einsum("ecd,edf->ecf", x.reshape(e, capacity, d).to(torch.float32),
-                       w.to(torch.float32))
+    xs = x.reshape(e, capacity, d).to(torch.float32)
+    if w.dtype == torch.float32:
+        out = torch.einsum("ecd,edf->ecf", xs, w)
+    else:
+        step = max(1, PLAIN_BLOCK_ELEMENTS // max(1, d * f))
+        out = torch.cat([torch.einsum("ecd,edf->ecf", xs[lo:lo + step],
+                                      w[lo:lo + step].to(torch.float32))
+                         for lo in range(0, max(e, 1), step)])
     return out.reshape(e * capacity, f).to(x.dtype)
 
 

@@ -1,10 +1,6 @@
 """Model configuration of the port (a copy of :mod:`repro.models.config`:
-the dataclasses and the parameter counts the memory reckoning uses).
-
-The port serves the ``moe`` family (``first_k_dense == 0``) and plain
-dense stacks; ``MLAConfig`` and ``SSMConfig`` are kept only because
-``ModelConfig`` names them and counts their parameters.
-"""
+the dataclasses and the parameter counts the memory reckoning uses),
+covering all ten architectures of the registry."""
 from __future__ import annotations
 
 import dataclasses

@@ -1,6 +1,6 @@
-"""Model substrate of the port: projections, RMSNorm, RoPE, GQA attention
-with a chunked online softmax and the decode cache, and MLPs
-(counterpart of :mod:`repro.models.layers`).
+"""Model substrate of the port: projections, RMSNorm, RoPE and M-RoPE, GQA
+and MLA attention with a chunked online softmax and the decode cache, and
+MLPs (counterpart of :mod:`repro.models.layers`).
 
 Parameters live in small ``nn.Module`` holders whose attribute paths
 mirror the reference's parameter dicts (``attn.wq.kernel`` is
@@ -9,8 +9,8 @@ reference's weights without transposes: a projection's ``kernel`` is
 ``(d_in, d_out)`` and ``dense`` computes ``x @ kernel``.  Every tensor is
 drawn in float32 from an explicit ``torch.Generator`` with the reference's
 scale, then cast.  The reference's activation-sharding ``hint`` is a no-op
-without a mesh and has no counterpart; MLA and M-RoPE are not ported
-(ROADMAP Queue 1 items 3b and 3c).  Serving only: parameters carry no gradient.
+without a mesh and has no counterpart.  Serving only: parameters carry no
+gradient.
 """
 from __future__ import annotations
 
@@ -27,14 +27,29 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+DRAW_ELEMENTS = 1 << 26  # the most elements drawn in float32 at once (256 MB)
+
+
 def normal(gen: torch.Generator | None, shape, scale: float, dtype, device) -> torch.Tensor:
     """``N(0, 1) * scale`` drawn in float32 from ``gen`` and cast to
     ``dtype``; uninitialised when ``gen`` is None (weights to be copied
-    in)."""
+    in).  A tensor of more than ``DRAW_ELEMENTS`` is drawn in slices of
+    its leading axis (an expert, a block of embedding rows), so the float32
+    draw never holds more than that: one of deepseek-v3's expert tensors is
+    7.5 GB in bfloat16 and would be a 15 GB float32 transient whole."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device=device)
-    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return t.mul_(scale).to(dtype)
+    shape = tuple(shape)
+    if math.prod(shape) <= DRAW_ELEMENTS:
+        t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return t.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, DRAW_ELEMENTS // math.prod(shape[1:]))
+    for lo in range(0, shape[0], step):
+        part = out[lo:lo + step]
+        part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                               device=device).mul_(scale))
+    return out
 
 
 class Dense(nn.Module):
@@ -67,7 +82,7 @@ def rmsnorm(p: Norm, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (half-split, as the reference)
+# rotary position embeddings (half-split, as the reference) and M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -76,16 +91,44 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x (B, S, H, Dh); positions (B, S) int.  The first and second halves
-    of each head are the rotated pairs (not interleaved)."""
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the pairs (first half, second half) of each head of x (B, S,
+    H, Dh) by the angles ang (B, S, Dh/2), in float32."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)
-    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, d/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1 = x[..., : d // 2].to(torch.float32)
     x2 = x[..., d // 2:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, S, H, Dh); positions (B, S) int.  The first and second halves
+    of each head are the rotated pairs (not interleaved)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)  # (B, S, d/2)
+
+
+def mrope_sections(d_head: int) -> tuple[int, int, int]:
+    """The (t, h, w) split of a head's d_head/2 frequencies the reference's
+    attention uses: 3/8 of them each for h and w, the rest for t."""
+    half = d_head // 2
+    return (half - 2 * (half * 3 // 8), half * 3 // 8, half * 3 // 8)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: x (B, S, H, Dh); positions3 (3, B, S) = (t, h, w)
+    ids.  The frequency spectrum is cut into three sections, each rotated
+    by its own id."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(positions3[i][..., None].to(torch.float32) * freqs[start:start + sec])
+        start += sec
+    return _rotate(x, torch.cat(parts, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +179,15 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x[:, :, :, None, :].expand(b, s, kh, n_rep, d).reshape(b, s, kh * n_rep, d)
 
 
+def _write_rows(buf: torch.Tensor, idx: int, rows: torch.Tensor) -> None:
+    """Write ``rows`` (B, S, ...) into the cache tensor ``buf`` (B, Smax,
+    ...) at positions ``idx`` .. ``idx + S``."""
+    if idx + rows.shape[1] > buf.shape[1]:
+        raise ValueError(f"cache of {buf.shape[1]} positions cannot take {rows.shape[1]} more "
+                         f"after {idx}")
+    buf[:, idx:idx + rows.shape[1]] = rows.to(buf.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention block
 # ---------------------------------------------------------------------------
@@ -153,19 +205,24 @@ class Attention(nn.Module):
 
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
-              cache: dict | None = None):
+              cache: dict | None = None, mrope_pos: torch.Tensor | None = None):
     """x (B, S, D).  ``cache``: None, or one layer's ``{"k", "v", "index"}``
     (k/v ``(B, Smax, KH, Dh)``, ``index`` the tokens already cached, a host
     integer).  The new K/V rows are written into the cache's tensors in
-    place; returns ``(out, new_cache)`` with the advanced index."""
+    place; returns ``(out, new_cache)`` with the advanced index.  An
+    ``mrope`` model rotates q and k by ``mrope_pos`` (3, B, S), and, as the
+    reference, not at all when it is None."""
     b, sq, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = dense(p.wq, x).reshape(b, sq, h, dh)
     k = dense(p.wk, x).reshape(b, sq, kh, dh)
     v = dense(p.wv, x).reshape(b, sq, kh, dh)
     if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue 1 item 3c)")
-    if cfg.rope == "rope":
+        if mrope_pos is not None:
+            sec = mrope_sections(dh)
+            q = apply_mrope(q, mrope_pos, cfg.rope_theta, sections=sec)
+            k = apply_mrope(k, mrope_pos, cfg.rope_theta, sections=sec)
+    elif cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
@@ -174,12 +231,10 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.
         return dense(p.wo, out.reshape(b, sq, h * dh)), None
     idx = int(cache["index"])
     ck, cv = cache["k"], cache["v"]
-    if idx + sq > ck.shape[1]:
-        raise ValueError(f"cache of {ck.shape[1]} positions cannot take {sq} more after {idx}")
     if cfg.kv_dup > 1:  # store duplicated kv heads, as the reference does
         k, v = repeat_kv(k, cfg.kv_dup), repeat_kv(v, cfg.kv_dup)
-    ck[:, idx:idx + sq] = k.to(ck.dtype)
-    cv[:, idx:idx + sq] = v.to(cv.dtype)
+    _write_rows(ck, idx, k)
+    _write_rows(cv, idx, v)
     n_rep = h // (kh * cfg.kv_dup)
     # positions past idx + sq hold zeros and are masked by the causal offset
     out = _attn_chunked(q, repeat_kv(ck.to(q.dtype), n_rep), repeat_kv(cv.to(q.dtype), n_rep),
@@ -187,6 +242,69 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.
                         chunk_k=cfg.attn_chunk_k)
     new_cache = {"k": ck, "v": cv, "index": cache["index"] + sq}
     return dense(p.wo, out.reshape(b, sq, h * dh)), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """``wq_a`` (D, q_lora), ``q_norm``, ``wq_b`` (q_lora, H*(nope+rope)),
+    ``wkv_a`` (D, kv_lora+rope), ``kv_norm``, ``wkv_b`` (kv_lora,
+    H*(nope+v)), ``wo`` (H*v, D): the reference's ``make_mla``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device, gen=None):
+        super().__init__()
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.n_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        kw = dict(dtype=dtype, device=device)
+        self.wq_a = Dense(d, m.q_lora_rank, gen=gen, **kw)
+        self.q_norm = Norm(m.q_lora_rank, **kw)
+        self.wq_b = Dense(m.q_lora_rank, h * qk, gen=gen, **kw)
+        self.wkv_a = Dense(d, m.kv_lora_rank + m.qk_rope_head_dim, gen=gen, **kw)
+        self.kv_norm = Norm(m.kv_lora_rank, **kw)
+        self.wkv_b = Dense(m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim), gen=gen,
+                           **kw)
+        self.wo = Dense(h * m.v_head_dim, d, gen=gen, **kw)
+
+
+def mla_attention(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
+                  cache: dict | None = None):
+    """DeepSeek-V3 MLA, the reference's math (no absorbed projections).
+    ``cache``: None, or one layer's ``{"latent" (B, Smax, kv_lora), "k_rope"
+    (B, Smax, rope), "index"}``: the compressed latent and the rotated key
+    part, written in place.  Every call expands the whole latent through
+    ``wkv_b`` into K and V, pads V to the qk width for the chunked softmax
+    and slices it after.  Returns ``(out, new_cache)``."""
+    m = cfg.mla
+    b, sq, _ = x.shape
+    h = cfg.n_heads
+    nope, rope, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    q = dense(p.wq_b, rmsnorm(p.q_norm, dense(p.wq_a, x), cfg.norm_eps))
+    q = q.reshape(b, sq, h, nope + rope)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    kv_a = dense(p.wkv_a, x)  # (B, S, kv_lora + rope)
+    latent = rmsnorm(p.kv_norm, kv_a[..., :m.kv_lora_rank], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., m.kv_lora_rank:][:, :, None, :], positions,
+                        cfg.rope_theta)  # (B, S, 1, rope)
+    new_cache, q_offset = None, 0
+    if cache is not None:
+        q_offset = int(cache["index"])
+        lat, kr = cache["latent"], cache["k_rope"]
+        _write_rows(lat, q_offset, latent)
+        _write_rows(kr, q_offset, k_rope[:, :, 0])
+        new_cache = {"latent": lat, "k_rope": kr, "index": cache["index"] + sq}
+        latent, k_rope = lat.to(x.dtype), kr[:, :, None].to(x.dtype)
+    kv = dense(p.wkv_b, latent).reshape(b, -1, h, nope + dv)
+    sk = kv.shape[1]
+    k = torch.cat([kv[..., :nope], k_rope.expand(b, sk, h, rope)], -1)
+    vpad = F.pad(kv[..., nope:], (0, nope + rope - dv))
+    out = _attn_chunked(torch.cat([q[..., :nope], q_rope], -1), k, vpad, causal=cfg.causal,
+                        q_offset=q_offset, chunk_q=min(cfg.attn_chunk_q, sq),
+                        chunk_k=cfg.attn_chunk_k)[..., :dv]
+    return dense(p.wo, out.reshape(b, sq, h * dv)), new_cache
 
 
 # ---------------------------------------------------------------------------

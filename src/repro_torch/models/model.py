@@ -1,15 +1,24 @@
-"""Model wrapper of the port: embedding → block stack → head, with init,
-forward, the decode cache and the decode step (counterpart of
-:mod:`repro.models.model`).
+"""Model wrapper of the port: embedding → block stacks → head, with init,
+forward, the decode caches and the decode step, for every family of the
+registry (counterpart of :mod:`repro.models.model`).
 
-Ported families: ``moe`` with ``first_k_dense == 0`` (attention + MoE in
-every layer; ``qwen3-moe-30b-a3b``) and ``dense`` (attention + MLP, with
-QKV bias, gelu or swiglu, tied embeddings and a duplicated decode cache:
-``llama3-8b``, ``qwen2-1.5b``, ``mistral-large-123b``, ``granite-20b``).
-MLA, MTP and dense-prefix MoE stacks raise ``NotImplementedError`` naming
-ROADMAP Queue 1 item 3b; hybrid, SSM, encoder and VLM families, M-RoPE and
-modality front ends item 3c; training, the loss and the optimiser are
-item 3d.
+Composition per family, as the reference's:
+
+* ``dense`` / ``vlm``: attention + MLP in every layer (``vlm``: M-RoPE and
+  a front-end stub);
+* ``moe``: ``first_k_dense`` attention + MLP layers (``dense_layers``),
+  then attention + MoE (``layers``); MLA where the config has it, and
+  deepseek-v3's multi-token-prediction weights (``mtp_block``,
+  ``mtp_proj``), which only the training loss reads;
+* ``ssm``: Mamba2 blocks;
+* ``hybrid`` (zamba2): groups of ``hybrid_shared_period`` Mamba2 blocks,
+  each followed by the one shared attention + MLP block on ``concat(x,
+  x0)`` through ``shared_in`` plus the group's LoRA;
+* ``encoder`` (hubert): non-causal attention + gelu MLP, a front-end stub.
+
+A ``frontend_stub`` model takes precomputed (B, S, D) embeddings in place
+of token ids.  Training, the loss and the optimiser are not ported
+(ROADMAP Queue 1 item 3d).
 
 The model runs where its weights are: :func:`init` draws them on the
 generator's device, :func:`params_from_numpy` copies the reference's onto
@@ -28,55 +37,65 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
+# the reference's parameter subtrees stacked over layers (L, ...)
+STACKED = ("layers", "dense_layers")
+
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve yet,
-    each piece with the ROADMAP Queue 1 item that ports it: 3b for
-    deepseek-v3's blocks (MLA, MTP, dense prefix layers), 3c for the SSM,
-    hybrid, encoder and VLM families."""
-    missing = []
-    if cfg.family not in ("moe", "dense"):
-        missing.append((f"family {cfg.family!r}", "3c"))
-    if cfg.family == "moe" and (cfg.moe is None or cfg.moe.first_k_dense):
-        missing.append(("MoE stacks with dense prefix layers", "3b"))
-    if cfg.family == "dense" and cfg.moe is not None:
-        missing.append(("a dense family with an MoE config", "3b"))
-    for flag, what, item in ((cfg.mla is not None, "MLA", "3b"),
-                             (cfg.ssm is not None, "SSM layers", "3c"),
-                             (cfg.mtp, "multi-token prediction", "3b"),
-                             (cfg.frontend_stub, "modality front ends", "3c"),
-                             (cfg.rope == "mrope", "M-RoPE", "3c")):
-        if flag:
-            missing.append((what, item))
-    if missing:
-        items = sorted({item for _, item in missing})
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(what for what, _ in missing)} not ported yet "
-            f"(ROADMAP Queue 1 item {' and '.join(items)})")
+def _period(cfg: ModelConfig) -> int:
+    """The hybrid's Mamba layers a group, one shared block after each."""
+    return cfg.hybrid_shared_period or cfg.n_layers
+
+
+def _n_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // _period(cfg)
 
 
 class Model(nn.Module):
-    """Parameter tree of the reference's ``init`` as modules:
-    ``embed`` (V, D), ``layers[i]`` (the reference's ``layers`` row i),
-    ``ln_f``, ``unembed`` (D, V) unless the embeddings are tied."""
+    """Parameter tree of the reference's ``init`` as modules: ``embed`` (V,
+    D); ``layers[i]`` (the reference's stacked ``layers``, row i) and, for a
+    dense-prefix MoE stack, ``dense_layers[i]``; the hybrid's ``shared``
+    block, ``shared_in`` (2D, D) and its per-group ``lora_a`` (G, 2D, r) and
+    ``lora_b`` (G, r, D); ``ln_f``; ``unembed`` (D, V) unless the
+    embeddings are tied; ``mtp_block`` and ``mtp_proj`` (2D, D) for MTP."""
 
     def __init__(self, cfg: ModelConfig, *, device, gen: torch.Generator | None = None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         dtype = _dtype(cfg)
         kw = dict(dtype=dtype, device=device)
-        self.embed = L.param(L.normal(gen, (cfg.vocab, cfg.d_model), 0.01, **kw))
-        kind = "attn_moe" if cfg.moe is not None else "attn_mlp"
-        self.layers = nn.ModuleList(T.Block(cfg, kind, gen=gen, **kw)
-                                    for _ in range(cfg.n_layers))
-        self.ln_f = L.Norm(cfg.d_model, **kw)
+        d = cfg.d_model
+
+        def stack(kind: str, n: int) -> nn.ModuleList:
+            return nn.ModuleList(T.Block(cfg, kind, gen=gen, **kw) for _ in range(n))
+
+        self.embed = L.param(L.normal(gen, (cfg.vocab, d), 0.01, **kw))
+        self.dense_layers = None
+        if cfg.family == "ssm":
+            self.layers = stack("mamba", cfg.n_layers)
+        elif cfg.family == "hybrid":
+            n_groups, r = _n_groups(cfg), cfg.hybrid_lora_rank or 16
+            self.layers = stack("mamba", cfg.n_layers)
+            self.shared = T.Block(cfg, "attn_mlp", gen=gen, **kw)
+            self.shared_in = L.Dense(2 * d, d, gen=gen, **kw)
+            self.lora_a = L.param(L.normal(gen, (n_groups, 2 * d, r), 0.01, **kw))
+            self.lora_b = L.param(torch.zeros((n_groups, r, d), **kw))
+        elif cfg.moe is not None:
+            kd = cfg.moe.first_k_dense
+            if kd:
+                self.dense_layers = stack("attn_mlp", kd)
+            self.layers = stack("attn_moe", cfg.n_layers - kd)
+        else:
+            self.layers = stack("attn_mlp", cfg.n_layers)
+        self.ln_f = L.Norm(d, **kw)
         self.unembed = (None if cfg.tie_embeddings
-                        else L.param(L.normal(gen, (cfg.d_model, cfg.vocab), 0.01, **kw)))
+                        else L.param(L.normal(gen, (d, cfg.vocab), 0.01, **kw)))
+        if cfg.mtp:  # deepseek multi-token prediction: one extra block and projection
+            self.mtp_block = T.Block(cfg, "attn_mlp", gen=gen, **kw)
+            self.mtp_proj = L.Dense(2 * d, d, gen=gen, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -98,10 +117,12 @@ def _to_torch(a) -> torch.Tensor:
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], *, device="cuda") -> Model:
-    """The reference's parameter pytree (NumPy arrays; the layer stack
-    stacked ``(L, ...)`` under ``"layers"``) as the port's model on
-    ``device``: every leaf copied as it is, no transposes.  Raises unless
-    the tree's leaves and the model's parameters match one to one."""
+    """The reference's parameter pytree (NumPy arrays; the layer stacks
+    stacked ``(L, ...)`` under ``"layers"`` and ``"dense_layers"``) as the
+    port's model on ``device``: every leaf copied as it is, no transposes,
+    a stack's row i to its layer i, every other subtree (the shared block,
+    the LoRA tensors stacked by group, the MTP weights) as it is.  Raises
+    unless the tree's leaves and the model's parameters match one to one."""
     model = Model(cfg, device=resolve_device(device))
     want = dict(model.named_parameters())
     seen = set()
@@ -122,9 +143,9 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], *, device="cuda
                 walk(prefix + (key,), sub)
             return
         value = _to_torch(node)
-        if prefix[0] == "layers":
+        if prefix[0] in STACKED:
             for i in range(value.shape[0]):
-                put(".".join(("layers", str(i)) + prefix[1:]), value[i])
+                put(".".join((prefix[0], str(i)) + prefix[1:]), value[i])
         else:
             put(".".join(prefix), value)
 
@@ -145,26 +166,96 @@ def _head(p: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ (p.embed.T if cfg.tie_embeddings else p.unembed)
 
 
+def _embed_in(p: Model, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """(B, S) token ids looked up in ``embed``; a front-end stub's (B, S, D)
+    embeddings used as they come, in the model's dtype."""
+    tokens = torch.as_tensor(tokens, device=p.device)
+    if cfg.frontend_stub and tokens.dim() == 3:
+        return tokens.to(_dtype(cfg))
+    return p.embed[tokens.to(torch.int64)]
+
+
+def _index_leaf(caches):
+    """The first ``index`` tensor of a cache tree (dicts and tuples), or
+    None (Mamba's caches have none)."""
+    if isinstance(caches, Mapping):
+        return caches.get("index")
+    for c in caches or ():
+        leaf = None if c is None else _index_leaf(c)
+        if leaf is not None:
+            return leaf
+    return None
+
+
 def _cache_index(caches) -> int:
-    """Tokens already in the caches (layer 0's index, a host integer)."""
-    return int(caches["index"][0])
+    """Tokens already in the caches: the first attention stack's layer-0
+    index (a host integer), or 0 where no cache has an index, as the
+    reference's."""
+    leaf = _index_leaf(caches)
+    return 0 if leaf is None else int(leaf.reshape(-1)[0])
+
+
+def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, backend):
+    """Groups of ``period`` Mamba layers, each followed by the shared block
+    on ``shared_in(concat(x, x0)) + concat(x, x0) @ lora_a[g] @ lora_b[g]``
+    added to x.  ``caches``: None or ``(mamba caches (L, ...), attention
+    caches (G, ...))``; returns ``(x, new caches or (None, None), aux)``."""
+    period = _period(cfg)
+    x0 = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    m_caches, a_caches = (None, None) if caches is None else caches
+    new_m, olds_a, new_a = [], [], []
+    for g in range(_n_groups(cfg)):
+        rows = slice(g * period, (g + 1) * period)
+        grp = None if m_caches is None else {k: v[rows] for k, v in m_caches.items()}
+        x, nc, a = T.apply_stack(p.layers[rows], cfg, x, positions, caches=grp,
+                                 dispatch=dispatch, backend=backend)
+        aux = aux + a
+        new_m.append(nc)
+        a_cache = None if a_caches is None else T.layer_cache(a_caches, g)
+        cat = torch.cat([x, x0], -1)
+        h = L.dense(p.shared_in, cat) + (cat @ p.lora_a[g]) @ p.lora_b[g]
+        h, na, a2 = T.apply_block(p.shared, cfg, h, positions, cache=a_cache)
+        x = x + h
+        aux = aux + a2
+        olds_a.append(a_cache)
+        new_a.append(na)
+    if caches is None:
+        return x, (None, None), aux
+    cat_m = {k: torch.cat([c[k] for c in new_m]) for k in m_caches}
+    return x, (cat_m, T.restack(a_caches, olds_a, new_a)), aux
 
 
 def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
-            dispatch=None, backend="auto"):
-    """tokens (B, S) int → ``(logits (B, S, V), new_caches, aux_loss)`` on
-    the model's device.  With ``caches``, positions continue from the
-    cache's index and the new K/V rows are written into the caches'
-    tensors in place."""
-    tokens = torch.as_tensor(tokens, device=p.device).to(torch.int64)
-    x = p.embed[tokens]
+            mrope_pos=None, dispatch=None, backend="auto"):
+    """tokens (B, S) int, or (B, S, D) embeddings for a front-end stub →
+    ``(logits (B, S, V), new_caches, aux_loss)`` on the model's device.
+    With ``caches``, positions continue from the caches' index; attention
+    rows are written into the caches' tensors in place.  ``mrope_pos`` (3,
+    B, S): an ``mrope`` model's (t, h, w) positions.  A dense-prefix MoE
+    model's and the hybrid's caches are pairs, their new caches too (``(None,
+    None)`` without caches), as the reference's."""
+    x = _embed_in(p, cfg, tokens)
     b, sq = x.shape[:2]
     if positions is None:
         start = 0 if caches is None else _cache_index(caches)
         positions = (start + torch.arange(sq, dtype=torch.int32, device=p.device))[None, :]
         positions = positions.expand(b, sq)
-    x, new_caches, aux = T.apply_stack(p.layers, cfg, x, positions, caches=caches,
-                                       dispatch=dispatch, backend=backend)
+    if mrope_pos is not None:
+        mrope_pos = torch.as_tensor(mrope_pos, device=p.device)
+    if cfg.family == "hybrid":
+        x, new_caches, aux = _hybrid_stacks(p, cfg, x, positions, caches, dispatch, backend)
+    elif p.dense_layers is not None:
+        dc, mc = (None, None) if caches is None else caches
+        x, ndc, a1 = T.apply_stack(p.dense_layers, cfg, x, positions, caches=dc,
+                                   mrope_pos=mrope_pos)
+        x, nmc, a2 = T.apply_stack(p.layers, cfg, x, positions, caches=mc,
+                                   dispatch=dispatch, backend=backend)
+        new_caches, aux = (ndc, nmc), a1 + a2
+    else:
+        x, new_caches, aux = T.apply_stack(p.layers, cfg, x, positions, caches=caches,
+                                           mrope_pos=mrope_pos, dispatch=dispatch,
+                                           backend=backend)
     return _head(p, cfg, x), new_caches, aux
 
 
@@ -175,19 +266,53 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
                device="cuda"):
-    """Attention caches stacked over layers: k/v ``(L, B, max_len, KH,
-    Dh)`` in ``dtype`` (bfloat16 by default, whatever the model's dtype,
-    as the reference) on ``device``, and the filled length ``index`` (L,)
-    int32 on the host, so that reading it costs no device sync."""
-    _check_ported(cfg)
+    """Decode caches stacked over layers, the reference's layout per family,
+    in ``dtype`` (bfloat16 by default, whatever the model's dtype) on
+    ``device``, each ``index`` (n,) int32 on the host, so that reading it
+    costs no device sync:
+
+    * attention: k/v ``(n, B, max_len, KH * kv_dup, Dh)``; MLA the
+      compressed ``latent`` ``(n, B, max_len, kv_lora)`` and ``k_rope``
+      ``(n, B, max_len, rope)``;
+    * Mamba: ``conv`` ``(n, B, K-1, conv_dim)`` and the float32 state
+      ``ssm`` ``(n, B, H, P, N)``;
+    * ``ssm``: Mamba's over all layers; ``hybrid``: (Mamba's over all
+      layers, attention's over the groups); a dense-prefix MoE stack:
+      (attention's over the dense layers, attention's over the MoE ones);
+      else attention's over all layers."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads * cfg.kv_dup, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "index": torch.zeros((cfg.n_layers,), dtype=torch.int32)}
+
+    def attn_cache(n: int) -> dict:
+        if cfg.mla is not None:
+            m = cfg.mla
+            fields = {"latent": (n, batch, max_len, m.kv_lora_rank),
+                      "k_rope": (n, batch, max_len, m.qk_rope_head_dim)}
+        else:
+            shape = (n, batch, max_len, cfg.n_kv_heads * cfg.kv_dup, cfg.d_head)
+            fields = {"k": shape, "v": shape}
+        out = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, shape in fields.items()}
+        out["index"] = torch.zeros((n,), dtype=torch.int32)
+        return out
+
+    def mamba_cache(n: int) -> dict:
+        s = cfg.ssm
+        conv_dim = cfg.d_inner_ssm + 2 * s.n_groups * s.d_state
+        return {"conv": torch.zeros((n, batch, s.d_conv - 1, conv_dim), dtype=dtype, device=dev),
+                "ssm": torch.zeros((n, batch, cfg.n_ssm_heads, s.head_dim, s.d_state),
+                                   dtype=torch.float32, device=dev)}
+
+    if cfg.family == "ssm":
+        return mamba_cache(cfg.n_layers)
+    if cfg.family == "hybrid":
+        return mamba_cache(cfg.n_layers), attn_cache(_n_groups(cfg))
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        kd = cfg.moe.first_k_dense
+        return attn_cache(kd), attn_cache(cfg.n_layers - kd)
+    return attn_cache(cfg.n_layers)
 
 
-def decode_step(p: Model, cfg: ModelConfig, token, caches, *, backend="auto"):
+def decode_step(p: Model, cfg: ModelConfig, token, caches, *, mrope_pos=None, backend="auto"):
     """One-token decode: token (B, 1) → ``(logits (B, 1, V), new caches)``."""
-    logits, new_caches, _ = forward(p, cfg, token, caches=caches, backend=backend)
+    logits, new_caches, _ = forward(p, cfg, token, caches=caches, mrope_pos=mrope_pos,
+                                    backend=backend)
     return logits, new_caches

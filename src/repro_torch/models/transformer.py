@@ -1,10 +1,10 @@
-"""Transformer blocks and the layer stack of the port (counterpart of
-:mod:`repro.models.transformer`).
+"""Transformer and Mamba blocks and the layer stack of the port
+(counterpart of :mod:`repro.models.transformer`).
 
-A block is ``attn_moe`` (attention + MoE) or ``attn_mlp`` (attention +
-MLP), pre-norm with residuals.  The stack is an ``nn.ModuleList`` looped
-in Python: serving runs eagerly, so there is no scan and no remat.
-Mamba blocks are not ported (ROADMAP Queue 1 item 3c).
+A block is ``attn_moe`` (attention + MoE), ``attn_mlp`` (attention + MLP)
+or ``mamba`` (a Mamba2 mixer), pre-norm with residuals; its attention is
+MLA when the config has one.  The stack is an ``nn.ModuleList`` looped in
+Python: serving runs eagerly, so there is no scan and no remat.
 """
 from __future__ import annotations
 
@@ -13,20 +13,27 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+
+KINDS = ("attn_moe", "attn_mlp", "mamba")
 
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str, *, dtype, device, gen=None):
         super().__init__()
-        if kind not in ("attn_moe", "attn_mlp"):
-            raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                      "(ROADMAP Queue 1 item 3c)")
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}; one of {KINDS}")
         self.kind = kind
         kw = dict(dtype=dtype, device=device)
+        if kind == "mamba":
+            self.norm = L.Norm(cfg.d_model, **kw)
+            self.mixer = SSM.Mamba2(cfg, gen=gen, **kw)
+            return
         self.ln1 = L.Norm(cfg.d_model, **kw)
         self.ln2 = L.Norm(cfg.d_model, **kw)
-        self.attn = L.Attention(cfg, gen=gen, **kw)
+        self.attn = (L.MLA(cfg, gen=gen, **kw) if cfg.mla is not None
+                     else L.Attention(cfg, gen=gen, **kw))
         if kind == "attn_moe":
             self.moe = MOE.MoE(cfg, gen=gen, **kw)
         else:
@@ -34,10 +41,18 @@ class Block(nn.Module):
 
 
 def apply_block(p: Block, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                cache=None, dispatch=None, backend="auto"):
+                cache=None, mrope_pos=None, dispatch=None, backend="auto"):
     """Returns ``(x, new_cache, aux)``."""
-    h, new_cache = L.attention(p.attn, cfg, L.rmsnorm(p.ln1, x, cfg.norm_eps), positions,
-                               cache=cache)
+    if p.kind == "mamba":
+        h, new_cache = SSM.mamba2_block(p.mixer, cfg, L.rmsnorm(p.norm, x, cfg.norm_eps),
+                                        cache=cache)
+        return x + h, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    hn = L.rmsnorm(p.ln1, x, cfg.norm_eps)
+    if cfg.mla is not None:
+        h, new_cache = L.mla_attention(p.attn, cfg, hn, positions, cache=cache)
+    else:
+        h, new_cache = L.attention(p.attn, cfg, hn, positions, cache=cache,
+                                   mrope_pos=mrope_pos)
     x = x + h
     hn = L.rmsnorm(p.ln2, x, cfg.norm_eps)
     if p.kind == "attn_moe":
@@ -48,22 +63,43 @@ def apply_block(p: Block, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
     return x + h, new_cache, aux
 
 
+def layer_cache(caches: dict, i: int) -> dict:
+    """Row ``i`` of caches stacked over layers: views of its tensors."""
+    return {k: v[i] for k, v in caches.items()}
+
+
+def restack(caches: dict, olds: list[dict], news: list[dict]) -> dict:
+    """The stacked caches after each layer ``i`` turned ``olds[i]`` (views
+    of ``caches``' rows) into ``news[i]``: a field every layer wrote in place
+    (returned the very view it was given) is ``caches``' own tensor;
+    another field, the layers' new tensors stacked."""
+    out = {}
+    for f, stacked in caches.items():
+        if all(new[f] is old[f] for old, new in zip(olds, news)):
+            out[f] = stacked
+        else:
+            out[f] = torch.stack([new[f] for new in news])
+    return out
+
+
 def apply_stack(blocks: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, *, caches=None, dispatch=None, backend="auto"):
-    """Apply the blocks in order.  ``caches``: None, or the stacked
-    ``{"k", "v", "index"}`` of the whole stack (k/v ``(L, B, Smax, KH,
-    Dh)``, index ``(L,)`` on the host); layer i works on views of row i, so
-    K/V are written in place.  Returns ``(x, new_caches, aux)``."""
+                positions: torch.Tensor, *, caches=None, mrope_pos=None, dispatch=None,
+                backend="auto"):
+    """Apply the blocks in order.  ``caches``: None, or the stack's caches
+    stacked over layers: attention's ``{"k", "v", "index"}`` (k/v ``(L, B,
+    Smax, KH, Dh)``) or MLA's ``{"latent", "k_rope", "index"}``, whose rows
+    the layers write in place, with ``index`` ``(L,)`` on the host; or
+    Mamba's ``{"conv", "ssm"}``, whose layers return new tensors.  Returns
+    ``(x, new_caches, aux)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_index = []
+    olds, news = [], []
     for i, blk in enumerate(blocks):
-        cache = None if caches is None else {
-            "k": caches["k"][i], "v": caches["v"][i], "index": caches["index"][i]}
-        x, nc, a = apply_block(blk, cfg, x, positions, cache=cache, dispatch=dispatch,
-                               backend=backend)
+        cache = None if caches is None else layer_cache(caches, i)
+        x, nc, a = apply_block(blk, cfg, x, positions, cache=cache, mrope_pos=mrope_pos,
+                               dispatch=dispatch, backend=backend)
         aux = aux + a
-        if nc is not None:
-            new_index.append(nc["index"])
+        olds.append(cache)
+        news.append(nc)
     if caches is None:
         return x, None, aux
-    return x, {"k": caches["k"], "v": caches["v"], "index": torch.stack(new_index)}, aux
+    return x, restack(caches, olds, news), aux

@@ -1,6 +1,6 @@
 """The CUDA kernels held against their plain versions on the card, and the
-port's pipeline and MoE serve path on the card against their plain CPU
-runs.  Every test needs
+port's pipeline and model families (MoE, dense, MLA, Mamba2, the hybrid,
+M-RoPE, the encoder) on the card against their plain CPU runs.  Every test needs
 an NVIDIA card and ``nvcc`` and skips elsewhere; on the card run
 
     python -m pytest -q --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -42,6 +42,7 @@ from repro_torch.kernels import (
 )
 from repro_torch.launch.serve import generate
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
 RNG = np.random.default_rng(17)
@@ -628,6 +629,91 @@ def test_dense_serve_on_the_card_matches_cpu(dev, arch):
                  keep_logits=True)
     np.testing.assert_allclose(a.logits, b.logits, rtol=1e-3, atol=1e-3)
     np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def _card_and_host(dev, cfg, seed):
+    """A model drawn on the card and its copy on the CPU (float32 products
+    in float32 on the card)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = M.init(cfg, torch.Generator(device=dev).manual_seed(seed))
+    host = M.Model(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    return card, host
+
+
+def _block_steps(blk, cfg, x, caches, steps: int):
+    """A block's prefill of x[:, :-steps] into ``caches`` (one layer's rows
+    of :func:`M.init_cache`), then ``steps`` one-token steps: the outputs
+    concatenated."""
+    s = x.shape[1] - steps
+    cache = T.layer_cache(caches, 0)
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[0], -1)
+    out, cache, _ = T.apply_block(blk, cfg, x[:, :s], pos[:, :s], cache=cache)
+    outs = [out]
+    for t in range(s, x.shape[1]):
+        out, cache, _ = T.apply_block(blk, cfg, x[:, t:t + 1], pos[:, t:t + 1], cache=cache)
+        outs.append(out)
+    return torch.cat(outs, 1)
+
+
+@pytest.mark.parametrize("arch,kind", [("deepseek-v3-671b", "attn_mlp"),
+                                       ("deepseek-v3-671b", "attn_moe"),
+                                       ("mamba2-2.7b", "mamba")])
+def test_full_width_block_on_the_card_matches_cpu(dev, arch, kind):
+    """One block at its published widths in float32: deepseek-v3's MLA with
+    its dense MLP; its MLA with the MoE (7168 -> 2048 experts and the
+    shared one, through the kernels), 32 of its 256 experts so that the
+    CPU copy stays small; mamba2's SSD.  A prefill of 32 positions into the
+    cache and 2 decode steps, the card against the CPU on the same weights
+    within rtol/atol 1e-3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dc.replace(get_config(arch), n_layers=1, dtype="float32")
+    if cfg.moe is not None:
+        cfg = dc.replace(cfg, moe=dc.replace(cfg.moe, num_experts=32,
+                                             first_k_dense=int(kind == "attn_mlp")))
+    card = T.Block(cfg, kind, dtype=torch.float32, device=dev,
+                   gen=torch.Generator(device=dev).manual_seed(11))
+    host = T.Block(cfg, kind, dtype=torch.float32, device="cpu")
+    host.load_state_dict(card.state_dict())
+    x = torch.randn((2, 34, cfg.d_model), generator=torch.Generator().manual_seed(11))
+    caches = M.init_cache(cfg, 2, 40, device="cpu")
+    caches = caches[0] if isinstance(caches, tuple) else caches
+    ops.reset_launch_counts()
+    got = _block_steps(card, cfg, x.to(dev), {k: v.to(dev) if v.dim() > 1 else v.clone()
+                                              for k, v in caches.items()}, 2)
+    if kind == "attn_moe":
+        assert ops.LAUNCHES["grouped_matmul_simt"] == 3 * 3 and ops.LAUNCHES["argsort"] == 3
+    want = _block_steps(host, cfg, x, caches, 2)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mamba2-2.7b", "zamba2-2.7b",
+                                  "qwen2-vl-2b", "hubert-xlarge"])
+def test_family_serve_on_the_card_matches_cpu(dev, arch):
+    """Each new family's smoke config in float32 (deepseek-v3 through the
+    MoE kernels): the card and the CPU on the same weights, the CPU run
+    teacher-forced with the card's tokens; qwen2-vl and hubert from (B, S,
+    D) embeddings."""
+    cfg = get_config(arch, smoke=True)
+    card, host = _card_and_host(dev, cfg, 7)
+    gen = torch.Generator().manual_seed(7)
+    prompts = (torch.randn((2, 32, cfg.d_model), generator=gen) if cfg.frontend_stub
+               else torch.randint(0, cfg.vocab, (2, 32), generator=gen))
+    ops.reset_launch_counts()
+    a = generate(card, cfg, prompts, gen=5, max_len=64, keep_logits=True)
+    if cfg.moe is not None:
+        moe_layers = cfg.n_layers - cfg.moe.first_k_dense
+        assert ops.LAUNCHES["argsort"] == moe_layers * 5
+    b = generate(host, cfg, prompts, gen=5, max_len=64, force=a.tokens[:, :-1],
+                 keep_logits=True)
+    np.testing.assert_allclose(a.logits, b.logits, rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    if cfg.family == "encoder":  # the forward alone, non-causal
+        np.testing.assert_allclose(M.forward(card, cfg, prompts)[0].cpu().numpy(),
+                                   M.forward(host, cfg, prompts)[0].numpy(),
+                                   rtol=1e-3, atol=1e-3)
 
 
 def _mesh_ranks(tmp_path, device: str, names, world: int = 2) -> dict:

@@ -3,8 +3,9 @@ CPU: ``llama3-8b``, ``qwen2-1.5b``, ``granite-20b`` and
 ``mistral-large-123b``.
 
 * ``config()`` and ``smoke_config()`` equal the reference's field by field,
-  with equal parameter counts; the registry serves the four and still
-  refuses the reference's other five architectures;
+  with equal parameter counts, for all ten of the reference's
+  architectures; the registry builds every one of them and refuses a name
+  it does not know;
 * each smoke model, seeded NumPy weights in the reference's parameter
   pytree carried across with ``params_from_numpy``: ``forward`` within
   rtol/atol 1e-5, and the prefill step with 4 teacher-forced serve steps
@@ -35,13 +36,16 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.launch import steps as JST
 from repro.models import model as JM
-from repro_torch.configs import all_arch_ids, get_config
+from repro_torch.configs import ARCHS, all_arch_ids, get_config
 from repro_torch.launch import serve as SV
 from repro_torch.models import model as M
 from test_torch_baselines import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 REFERENCE_FILE = Path(__file__).parent / "data" / "torch_dense_reference.npz"
 DENSE = ("llama3-8b", "qwen2-1.5b", "granite-20b", "mistral-large-123b")
+# the reference's other architectures, and the ROADMAP Queue 1 item that ported each
+OTHERS = [("deepseek-v3-671b", "3b"), ("mamba2-2.7b", "3c"), ("zamba2-2.7b", "3c"),
+          ("qwen2-vl-2b", "3c"), ("hubert-xlarge", "3c")]
 FULL_FLAGS = ("act", "kv_dup", "qkv_bias", "tie_embeddings")
 B, S, STEPS, MAX_LEN = 2, 16, 4, 20
 
@@ -130,7 +134,7 @@ def stored(name: str) -> dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + tuple(a for a, _ in OTHERS) + ("qwen3-moe-30b-a3b",))
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_equals_reference(arch, smoke):
     cfg, want = get_config(arch, smoke=smoke), j_get_config(arch, smoke=smoke)
@@ -139,13 +143,16 @@ def test_config_equals_reference(arch, smoke):
     assert cfg.active_param_count() == want.active_param_count()
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek-v3-671b", "3b"), ("mamba2-2.7b", "3c"),
-                                       ("zamba2-2.7b", "3c"), ("qwen2-vl-2b", "3c"),
-                                       ("hubert-xlarge", "3c")])
+@pytest.mark.parametrize("arch,item", OTHERS)
 def test_registry_refuses_the_other_architectures(arch, item):
-    assert set(DENSE) < set(all_arch_ids())
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        get_config(arch)
+    """The architectures the registry refused until ROADMAP Queue 1 item
+    ``item`` ported them are now served: registered beside the dense
+    family, their smoke models built; the registry still refuses a name it
+    does not know."""
+    assert set(DENSE) | {arch} <= set(all_arch_ids()) and len(ARCHS) == 10
+    cfg = get_config(arch, smoke=True)
+    model = M.init(cfg, torch.Generator().manual_seed(0))
+    assert sum(t.numel() for t in model.parameters()) > 0, item
     with pytest.raises(KeyError):
         get_config("gpt-0")
 

@@ -15,9 +15,19 @@ carried across with ``params_from_numpy``:
   ``ops.merge_absorb_sorted_bitonic`` (keys and counts equal, planes
   rtol 1e-4).
 
-The reference's functions run under ``jax.jit`` (one compile each).
+The reference's model functions run under ``jax.jit`` (one compile each).
+Its kernels' results (the grouped matmul and the merge-absorb tiles in
+interpret mode, and the bitonic merge-absorb of ``ops``) take seconds a
+case, so they are computed for ``STORED_CASES`` by
+``scripts/make_torch_moe_reference.py`` from per-case seeded inputs and
+read from ``tests/data/torch_moe_reference.npz``;
+``test_stored_reference_is_the_reference_output`` recomputes two cases
+live.
 """
 import dataclasses as dc
+import functools
+import zlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +66,22 @@ from test_torch_baselines import one_torch_thread  # noqa: F401  (an autouse fix
 
 ARCH = "qwen3-moe-30b-a3b"
 RNG = np.random.default_rng(13)
+REFERENCE_FILE = Path(__file__).parent / "data" / "torch_moe_reference.npz"
+GMM_SHAPES = [(2, 128, 128, 128, 128), (4, 256, 256, 384, 128), (8, 128, 512, 256, 128),
+              (4, 8, 128, 128, 8)]
+GMM_DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16,
+                                                                     torch.bfloat16)}
+TILE_SIZES = (64, 256, 1024)
+BITONIC_OPS = [(700, 500, 2), (33, 129, 4)]
+STORED_CASES = tuple(
+    [f"gmm-{dt}-{'-'.join(map(str, shape))}" for shape in GMM_SHAPES for dt in GMM_DTYPES]
+    + [f"tiles-{n}" for n in TILE_SIZES]
+    + [f"bitonic_ops-{na}-{nb}-{w}" for na, nb, w in BITONIC_OPS])
+LIVE_CASES = ("gmm-bfloat16-4-8-128-128-8", "tiles-64")
+
+
+def case_rng(name: str):
+    return np.random.default_rng(zlib.crc32(name.encode()))
 
 
 def _j_init(cfg_j, seed):
@@ -183,14 +209,23 @@ def test_prefill_and_serve_steps_match_reference_teacher_forced(ref):
 
 
 def test_init_cache_layout_and_unported_configs(ref):
+    """The cache of the MoE model; and the configs this module once saw
+    refused, now served: deepseek-v3's dense-prefix MoE stack caches a
+    (dense, MoE) pair of MLA latents, and the MoE config as an SSM family
+    builds Mamba blocks and a Mamba cache."""
     _, _, cfg, _ = ref
     c = M.init_cache(cfg, 3, 24, device="cpu")
     assert c["k"].shape == (cfg.n_layers, 3, 24, cfg.n_kv_heads, cfg.d_head)
     assert c["k"].dtype == torch.bfloat16 and c["index"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        get_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3c"):
-        M.init(dc.replace(cfg, family="ssm"), torch.Generator().manual_seed(0))
+    ds = get_config("deepseek-v3-671b", smoke=True)
+    dense_c, moe_c = M.init_cache(ds, 3, 24, device="cpu")
+    assert dense_c["latent"].shape == (ds.moe.first_k_dense, 3, 24, ds.mla.kv_lora_rank)
+    assert moe_c["k_rope"].shape == (ds.n_layers - ds.moe.first_k_dense, 3, 24,
+                                     ds.mla.qk_rope_head_dim)
+    ssm = dc.replace(cfg, family="ssm", ssm=get_config("mamba2-2.7b", smoke=True).ssm)
+    model = M.init(ssm, torch.Generator().manual_seed(0))
+    assert all(blk.kind == "mamba" for blk in model.layers)
+    assert M.init_cache(ssm, 3, 24, device="cpu")["ssm"].dtype == torch.float32
 
 
 def test_dense_family_forward_matches_reference():
@@ -215,20 +250,72 @@ def test_random_init_uses_reference_scales_and_serves():
 
 
 # ---------------------------------------------------------------------------
+# the kernels' stored reference results
+# ---------------------------------------------------------------------------
+
+
+def compute(name: str) -> dict[str, np.ndarray]:
+    """The reference's arrays of case ``name``."""
+    kind = name.split("-")[0]
+    return {"gmm": compute_gmm, "tiles": compute_tiles,
+            "bitonic_ops": compute_bitonic_ops}[kind](name)
+
+
+@functools.lru_cache(maxsize=1)
+def _stored_arrays():
+    return np.load(REFERENCE_FILE)
+
+
+def stored(name: str) -> dict[str, np.ndarray]:
+    arrays = _stored_arrays()
+    got = {k.split("|", 1)[1]: arrays[k] for k in arrays.files if k.startswith(f"{name}|")}
+    if not got:
+        pytest.fail(f"{REFERENCE_FILE.name} has no case {name!r}: run "
+                    "scripts/make_torch_moe_reference.py")
+    return got
+
+
+@pytest.mark.parametrize("name", LIVE_CASES)
+def test_stored_reference_is_the_reference_output(name):
+    """Cases recomputed live through the JAX package equal the stored file
+    bit for bit (the script's ``--check`` recomputes all)."""
+    got, want = compute(name), stored(name)
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
 # the grouped matmul's plain version
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("e,c,d,f,block_m", [(2, 128, 128, 128, 128), (4, 256, 256, 384, 128),
-                                             (8, 128, 512, 256, 128), (4, 8, 128, 128, 8)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def gmm_inputs(name: str):
+    """Case ``gmm-<dtype>-E-C-D-F-block_m``: x (E*C, D) and w (E, D, F)
+    in float32, the dtype and the shape."""
+    _, dtype, *dims = name.split("-")
+    e, c, d, f, block_m = map(int, dims)
+    rng = case_rng(name)
+    x = rng.normal(size=(e * c, d)).astype(np.float32)
+    w = (rng.normal(size=(e, d, f)) / np.sqrt(d)).astype(np.float32)
+    return x, w, dtype, (e, c, d, f, block_m)
+
+
+def compute_gmm(name: str) -> dict:
+    """The Pallas kernel in interpret mode (float32 values of its output)."""
+    x, w, dtype, (_, c, _, _, block_m) = gmm_inputs(name)
+    jdt = GMM_DTYPES[dtype][0]
+    out = j_grouped_matmul(jnp.asarray(x, jdt), jnp.asarray(w, jdt), capacity=c,
+                           block_m=block_m)
+    return {"out": np.asarray(out.astype(jnp.float32))}
+
+
+@pytest.mark.parametrize("e,c,d,f,block_m", GMM_SHAPES)
+@pytest.mark.parametrize("dtype", list(GMM_DTYPES))
 def test_grouped_matmul_plain_matches_pallas(e, c, d, f, block_m, dtype):
-    x = RNG.normal(size=(e * c, d)).astype(np.float32)
-    w = (RNG.normal(size=(e, d, f)) / np.sqrt(d)).astype(np.float32)
-    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
-                                                                       torch.bfloat16)
-    want = j_grouped_matmul(jnp.asarray(x, jdt), jnp.asarray(w, jdt), capacity=c,
-                            block_m=block_m)
+    x, w, _, _ = gmm_inputs(f"gmm-{dtype}-{e}-{c}-{d}-{f}-{block_m}")
+    want = stored(f"gmm-{dtype}-{e}-{c}-{d}-{f}-{block_m}")["out"]
+    tdt = GMM_DTYPES[dtype][1]
     got = ops.moe_grouped_matmul(torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt),
                                  capacity=c)
     assert got.dtype == tdt and got.shape == (e * c, f)
@@ -253,40 +340,46 @@ def _assert_states(got: AggState, want: dict):
         np.testing.assert_allclose(g[f], want[f], rtol=1e-4, atol=1e-5, err_msg=f)
 
 
+def tile_inputs(n: int):
+    """test_kernels.py's tiles: sorted keys with duplicates, unit counts,
+    2-wide planes, ``n`` rows a side (keys, counts, planes of each)."""
+    rng = np.random.default_rng(n)
+
+    def mk():
+        k = np.sort(rng.integers(0, n // 2, size=(1, n)).astype(np.uint32), -1)
+        return k, np.ones((1, n), np.int32), rng.normal(size=(1, 2, n)).astype(np.float32)
+
+    return mk(), mk()
+
+
+def compute_tiles(name: str) -> dict:
+    """The Pallas kernel's tiles in interpret mode and the reference's own
+    compaction."""
+    (ka, ca, va), (kb, cb, vb) = tile_inputs(int(name.split("-")[1]))
+    args = [jnp.asarray(x) for x in (ka, ca, va, va, va, kb, cb, vb, vb, vb)]
+    k2, c2, s2, mn2, mx2, tails = merge_absorb_tiles(*args)
+    want = kops._compact(k2[0], c2, s2, mn2, mx2, tails, (2, 2, 2))
+    return {f: np.asarray(getattr(want, f)) for f in FIELDS}
+
+
 @pytest.fixture(scope="module")
 def tiles_reference():
-    """test_kernels.py's tiles (sorted keys with duplicates, unit counts,
-    2-wide planes), ``n`` rows a side, through the Pallas kernel and the
-    reference's own compaction: ``get(n)`` gives the two states and the
-    reference's result, each ``n`` computed once for the module."""
-    cache = {}
+    """``get(n)``: the two states of :func:`tile_inputs` and the
+    reference's result on them (stored)."""
+
+    def state(k, c, v):
+        plane = v[0].T.copy()
+        return state_from_numpy({"keys": k[0], "count": c[0], "sum": plane, "min": plane,
+                                 "max": plane}, device="cpu")
 
     def get(n):
-        if n not in cache:
-            rng = np.random.default_rng(n)
-
-            def mk():
-                k = np.sort(rng.integers(0, n // 2, size=(1, n)).astype(np.uint32), -1)
-                return k, np.ones((1, n), np.int32), rng.normal(size=(1, 2, n)).astype(np.float32)
-
-            (ka, ca, va), (kb, cb, vb) = mk(), mk()
-            args = [jnp.asarray(x) for x in (ka, ca, va, va, va, kb, cb, vb, vb, vb)]
-            k2, c2, s2, mn2, mx2, tails = merge_absorb_tiles(*args)
-            want = kops._compact(k2[0], c2, s2, mn2, mx2, tails, (2, 2, 2))
-
-            def state(k, c, v):
-                plane = v[0].T.copy()
-                return state_from_numpy({"keys": k[0], "count": c[0], "sum": plane,
-                                         "min": plane, "max": plane}, device="cpu")
-
-            cache[n] = (state(ka, ca, va), state(kb, cb, vb),
-                        {f: np.asarray(getattr(want, f)) for f in FIELDS})
-        return cache[n]
+        a, b = tile_inputs(n)
+        return state(*a), state(*b), stored(f"tiles-{n}")
 
     return get
 
 
-@pytest.mark.parametrize("n", [64, 256, 1024])
+@pytest.mark.parametrize("n", TILE_SIZES)
 def test_bitonic_plain_matches_merge_absorb_tiles(n, tiles_reference):
     """The Pallas kernel's tiles and the reference's compaction against
     the port's plain version on the same states."""
@@ -294,15 +387,15 @@ def test_bitonic_plain_matches_merge_absorb_tiles(n, tiles_reference):
     _assert_states(ops.merge_absorb_sorted_bitonic(a, b), want)
 
 
-def _absorbed(n, domain, empty_tail, width):
+def _absorbed(rng, n, domain, empty_tail, width):
     """A duplicate-free key-sorted state (NumPy arrays) of capacity ``n``
     whose last ``empty_tail`` rows are EMPTY (neutral payloads)."""
     live = n - empty_tail
-    k = np.unique(RNG.integers(0, domain, 4 * live).astype(np.uint32))[:live]
+    k = np.unique(rng.integers(0, domain, 4 * live).astype(np.uint32))[:live]
     live = k.size
     keys = np.full(n, np.iinfo(np.uint32).max, np.uint32)
     keys[:live] = k
-    pay = RNG.normal(size=(n, width)).astype(np.float32)
+    pay = rng.normal(size=(n, width)).astype(np.float32)
     alive = (np.arange(n) < live)[:, None]
     return {"keys": keys, "count": alive[:, 0].astype(np.int32),
             "sum": np.where(alive, pay, 0.0).astype(np.float32),
@@ -310,13 +403,24 @@ def _absorbed(n, domain, empty_tail, width):
             "max": np.where(alive, pay, -np.inf).astype(np.float32)}
 
 
-@pytest.mark.parametrize("na,nb,width", [(700, 500, 2), (33, 129, 4)])
-def test_bitonic_ops_matches_reference_ops(na, nb, width):
-    a = _absorbed(na, 900, na // 5, width)
-    b = _absorbed(nb, 900, nb // 3, width)
+def bitonic_ops_inputs(name: str):
+    """Case ``bitonic_ops-<na>-<nb>-<width>``: two absorbed states."""
+    na, nb, width = map(int, name.split("-")[1:])
+    rng = case_rng(name)
+    return _absorbed(rng, na, 900, na // 5, width), _absorbed(rng, nb, 900, nb // 3, width)
+
+
+def compute_bitonic_ops(name: str) -> dict:
+    a, b = bitonic_ops_inputs(name)
     ja, jb = (jso.AggState(*(jnp.asarray(s[f]) for f in FIELDS)) for s in (a, b))
     want = jax.jit(kops.merge_absorb_sorted_bitonic)(ja, jb)
-    want = {f: np.asarray(getattr(want, f)) for f in FIELDS}
+    return {f: np.asarray(getattr(want, f)) for f in FIELDS}
+
+
+@pytest.mark.parametrize("na,nb,width", BITONIC_OPS)
+def test_bitonic_ops_matches_reference_ops(na, nb, width):
+    a, b = bitonic_ops_inputs(f"bitonic_ops-{na}-{nb}-{width}")
+    want = stored(f"bitonic_ops-{na}-{nb}-{width}")
     got = ops.merge_absorb_sorted_bitonic(state_from_numpy(a, device="cpu"),
                                           state_from_numpy(b, device="cpu"))
     assert got.capacity == na + nb == want["keys"].shape[0]
