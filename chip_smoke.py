@@ -19,7 +19,10 @@ with a non-zero exit):
    the four serve shapes, deepseek-v3's four in bfloat16 (256 experts,
    7168 -> 2048 and 2048 -> 7168 at C = 8 and 40), capacities 8 to 264 and
    widths that are no multiple of 64, on the variant its dtype and widths
-   call for, ``torch.bmm`` beside the serve shapes);
+   call for, ``torch.bmm`` beside the serve shapes; its backward, two more
+   launches of the kernel, at the training shapes (E = 128, C = 128, 2048
+   -> 768 and back, bfloat16 and float32) against the float32 products and
+   the plain version's autograd gradients, timed beside ``torch.bmm``'s);
 3. the main path: ``repro_torch.aggregate`` of TPC-H ``lineitem`` at SF 10
    grouped by ``l_orderkey`` (Q18's inner aggregate: count and sum of
    ``l_quantity``), checked exactly against a NumPy oracle, with every
@@ -164,7 +167,25 @@ with a non-zero exit):
    hubert-xlarge's (48) forward over 4 x 256 frame embeddings (an encoder
    has no decode step); d) float32 gates at full width, card = CPU within
    rtol/atol 1e-3: mamba2 and qwen2-vl at 2 layers served teacher-forced,
-   zamba2 at 6 (one group and its shared block), hubert's forward at 2.
+   zamba2 at 6 (one group and its shared block), hubert's forward at 2;
+18. training: a) qwen3-moe-30b-a3b in bfloat16 at full width cut to 4 of
+   its 48 layers (3.115 G parameters, AdamW with float32 moments, remat,
+   the sorted dispatch through the kernels), 5 steps on one batch of 4 x
+   512 from the ported ``DataLoader`` at lr 5e-3: finite losses and
+   gradient norms, the last loss below the first, the grouped matmul's
+   launches by phase (3 forward, 3 recompute, 6 backward a MoE layer a
+   step) and the argsort's, the step's figures and the device's idle
+   share; b) its float32 gate at 2 layers: loss and every gradient leaf
+   with the kernels against the plain versions on the card (rtol 1e-5;
+   1e-3 of each leaf's largest magnitude), routes equal, and the updated
+   parameters after one step; c) four error-feedback rounds of
+   ``compress_topk`` on 18a's embedding gradient (311,164,928 entries, k
+   = 2^18), then ``aggregate_sparse`` of the 2^20 pairs through the
+   argsort and the segmented combine against ``np.add.at``; d) ``python
+   -m repro_torch.launch.train`` on the smoke config for 20 steps, and
+   stopped at 10 then ``--resume``d: losses and the final checkpoint
+   equal bit for bit; deepseek-v3's smoke config (MTP, MLA) trained 3
+   steps on the card and on the CPU, within 1e-3.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -175,10 +196,11 @@ the inputs of the shape that carried most rows through them (``settle``):
 the aggregate kernels on phase 3's, the probe on phase 6's, the bitonic
 foil on phase 8's, the grouped matmul on phase 9's, the argsort and the
 grouped matmul at every shape a path gave them, with the other paths'
-times beside (phase 14's key sorts and phase 17's deepseek-v3 shapes
-among them), and the operations one call puts on the card
-(``torch.profiler``; the argsort must be one kernel up to 65,536 keys,
-the combine two kernels and a memset, and the foil its plan's).  The
+times beside (phase 14's key sorts, phase 17's deepseek-v3 shapes and
+phase 18's training shapes, the backward's among them), and the
+operations one call puts on the card (``torch.profiler``; the argsort
+must be one kernel up to 65,536 keys, the combine two kernels and a
+memset, and the foil its plan's).  The
 last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -631,6 +653,88 @@ def check_grouped_matmul(dev) -> None:
                 f"{float((ref == plain).float().mean()):.4f}")
 
 
+BACKWARD_TIMES: list[dict] = []  # check_grouped_matmul_backward's records
+# the training path's grouped matmuls (E, C, D, F): qwen3's wg/wi 2048 -> 768
+# and wo 768 -> 2048 at C = 128 (4 x 512 tokens, top 8 of 128 experts)
+TRAIN_GMM_SHAPES = ((128, 128, 2048, 768), (128, 128, 768, 2048))
+
+
+def gmm_backward_products(x, w, dy, c: int):
+    """The backward's two products as the Function launches them: dX = dY
+    @ w^T at capacity C, dW = x^T @ dY at capacity D, as ``(x', w',
+    capacity)``."""
+    e, d, f = w.shape
+    return ((dy, w.transpose(1, 2).contiguous(), c),
+            (x.view(e, c, d).transpose(1, 2).contiguous().view(e * d, c), dy.view(e, c, f), d))
+
+
+def check_grouped_matmul_backward(dev) -> None:
+    """Phase 2, the backward (18e): ``GroupedMatmul`` at the training path's
+    shapes in bfloat16 and float32: dX and dW within :func:`gmm_tolerance`
+    of the float32 products and beside the plain version's autograd
+    gradients, on the variant the dtype calls for (bfloat16: the tensor
+    cores in all three products); the backward timed beside the plain
+    version's and ``torch.bmm``'s autograd backward, with each product's
+    bound."""
+    import torch
+
+    from repro_torch.kernels import grouped_matmul, ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for e, c, d, f in TRAIN_GMM_SHAPES:
+            x = torch.randn((e * c, d), generator=gen, device=dev).to(dtype)
+            x.view(e, c, d)[:, c - c // 8:] = 0  # capacity padding
+            w = (torch.randn((e, d, f), generator=gen, device=dev) / math.sqrt(d)).to(dtype)
+            dy = torch.randn((e * c, f), generator=gen, device=dev).to(dtype)
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            ops.reset_launch_counts()
+            y = ops.moe_grouped_matmul(xg, wg, capacity=c)
+            dx, dw = torch.autograd.grad(y, (xg, wg), dy, retain_graph=True)  # timed below
+            launches = dict(ops.LAUNCHES)
+            want = ({"grouped_matmul": 3, "grouped_matmul_simt": 0} if dtype == torch.bfloat16
+                    else {"grouped_matmul": 0, "grouped_matmul_simt": 3})
+            want["grouped_matmul_bwd"] = 2
+            if any(launches[k] != v for k, v in want.items()):
+                raise SystemExit(f"FAIL grouped_matmul backward {dtype} {d}->{f}: launches "
+                                 f"{launches}, expected {want}")
+            (px, pw, pc), (qx, qw, qc) = gmm_backward_products(x, w, dy, c)
+            err_dx, ratio_dx = gmm_error(px, pw, pc, got=dx)
+            err_dw, ratio_dw = gmm_error(qx, qw, qc, got=dw.view(e * d, f))
+            if max(ratio_dx, ratio_dw) > 1.0:
+                raise SystemExit(f"FAIL grouped_matmul backward {dtype} {d}->{f}: dX "
+                                 f"{ratio_dx:.3f}, dW {ratio_dw:.3f} x the tolerance")
+            xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+            yp = grouped_matmul.grouped_matmul_plain(xp, wp, capacity=c)
+            pdx, pdw = torch.autograd.grad(yp, (xp, wp), dy, retain_graph=True)
+            xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+            yb = torch.bmm(xb.view(e, c, d), wb).view(e * c, f)
+
+            def backward_ms(out, ins):
+                return cuda_ms(lambda: torch.autograd.grad(out, ins, dy, retain_graph=True),
+                               10)[0]
+
+            b_dx, b_dw = _bound("grouped_matmul", (px, pw)), _bound("grouped_matmul", (qx, qw))
+            info = dict(
+                dtype=str(dtype), E=e, C=c, D=d, F=f, launches=launches,
+                dx_share_of_tolerance=ratio_dx, dw_share_of_tolerance=ratio_dw,
+                max_abs_diff_plain_dx=float((dx.float() - pdx.float()).abs().max()),
+                max_abs_diff_plain_dw=float((dw.float() - pdw.float()).abs().max()),
+                backward_ms=backward_ms(y, (xg, wg)), plain_backward_ms=backward_ms(yp, (xp, wp)),
+                bmm_backward_ms=backward_ms(yb, (xb, wb)),
+                dx_ms=cuda_ms(lambda: grouped_matmul.grouped_matmul_launch(px, pw, capacity=pc),
+                              10)[0],
+                dw_ms=cuda_ms(lambda: grouped_matmul.grouped_matmul_launch(qx, qw, capacity=qc),
+                              10)[0],
+                dx_bound_ms=b_dx[0], dx_bound_by=b_dx[1], dw_bound_ms=b_dw[0],
+                dw_bound_by=b_dw[1],
+                dw_variant=grouped_matmul.variant(dtype, c, f, d)[0])
+            BACKWARD_TIMES.append(info)
+            log(f"grouped_matmul backward ok: {json.dumps(info)}")
+            del x, w, dy, xg, wg, y, dx, dw, xp, wp, yp, pdx, pdw, xb, wb, yb
+    torch.cuda.empty_cache()
+
+
 def probe_keys(rng, n, m, key_dtype, device):
     """Sorted, duplicate-free key vectors with EMPTY tails: ``b`` holds
     ``m`` valid keys; ``a`` about ``n``, among them b's first and last key
@@ -717,8 +821,10 @@ def _kernel_table():
                                                    str(x.dtype).replace("torch.", "")),
                            # the expert weights do not change while a model
                            # serves: a reference, not a copy (deepseek-v3's
-                           # are 7.5 GB a tensor)
-                           lambda x, w, capacity: ((x.clone(), w), {"capacity": capacity})),
+                           # are 7.5 GB a tensor), detached (a trained
+                           # model's require gradients)
+                           lambda x, w, capacity: ((x.detach().clone(), w.detach()),
+                                                   {"capacity": capacity})),
         "merge_absorb_bitonic": (merge_aggregate, "merge_absorb_bitonic_cuda",
                                  "merge_absorb_bitonic_plain",
                                  lambda a, b: (a.capacity, b.capacity, a.widths),
@@ -3101,6 +3207,379 @@ def family_path(dev, by_path: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(arch="qwen3-moe-30b-a3b", layers=4, batch=4, seq=512, steps=5, lr=5e-3)
+TRAIN_GATE_LAYERS = 2  # 18b: float32, full width, kernels against plain versions
+TOPK = dict(rounds=4, k=1 << 18)  # 18c: error-feedback rounds on 18a's embedding gradient
+DRIVER = dict(arch="qwen3-moe-30b-a3b", steps=20, cut=10)  # 18d: smoke config, --resume
+DEEPSEEK_TRAIN = dict(steps=3, batch=4, seq=64)  # 18d: deepseek-v3's smoke config, card = CPU
+
+
+@contextlib.contextmanager
+def gmm_phases():
+    """Count the grouped-matmul launches made inside the autograd engine
+    (the remat recompute and the backward's own products) apart from the
+    forward's: the backward's own are ``ops.LAUNCHES["grouped_matmul_bwd"]``,
+    the recompute the rest of those in the engine."""
+    import torch
+
+    from repro_torch.kernels import grouped_matmul
+
+    counts, orig = {"in_backward": 0, "forward": 0}, grouped_matmul.grouped_matmul_launch
+
+    def tap(*args, **kw):
+        counts["in_backward" if torch._C._current_graph_task_id() >= 0 else "forward"] += 1
+        return orig(*args, **kw)
+
+    grouped_matmul.grouped_matmul_launch = tap
+    try:
+        yield counts
+    finally:
+        grouped_matmul.grouped_matmul_launch = orig
+
+
+def train_batch(cfg, batch: int, seq: int, dev):
+    """One batch of the ported ``DataLoader`` at the config's vocabulary."""
+    from repro_torch.data import DataLoader
+    from repro_torch.launch.train import make_batch
+
+    return make_batch(cfg, DataLoader(cfg.vocab, batch, seq, seed=SEED).next(), dev)
+
+
+def train_path(dev, by_path: dict) -> dict:
+    """Phase 18a: qwen3-moe-30b-a3b trains at full width cut to
+    ``TRAIN["layers"]`` layers in bfloat16 (AdamW with float32 moments,
+    remat, sorted dispatch through the kernels): the same batch for 5 steps
+    at lr 5e-3; every loss and gradient norm finite and the last loss below
+    the first; launches by phase; then one step under the profiler and the
+    path's kernels against their plain versions (the backward's products
+    among them).  Returns the model (18c reads its embedding gradient)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN["layers"])
+    step, init_state, opt = ST.make_train_step(cfg, lr=TRAIN["lr"], backend="cuda")
+    if opt != "adamw" or not cfg.remat:
+        raise SystemExit(f"FAIL train: optimizer {opt}, remat {cfg.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device=dev).manual_seed(SEED))
+    _sync()
+    init_s = time.perf_counter() - t0
+    batch = train_batch(cfg, TRAIN["batch"], TRAIN["seq"], dev)
+    state_bytes = sum(t.numel() * t.element_size() for t in state.params.parameters())
+    moment_bytes = sum(t.numel() * t.element_size() for t in (*state.opt_m.values(),
+                                                              *state.opt_v.values()))
+    losses, norms, step_s = [], [], []
+    ops.reset_launch_counts()
+    with capture("train"), gmm_phases() as phases:
+        for _ in range(TRAIN["steps"]):
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))  # a sync: the step's end
+            norms.append(float(met["grad_norm"]))
+            step_s.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise SystemExit(f"FAIL train: losses {losses}, gradient norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL train: the loss did not fall: {losses}")
+    moe = cfg.n_layers * TRAIN["steps"]  # MoE layer-steps
+    bwd = launches["grouped_matmul_bwd"]
+    by_phase = dict(forward=phases["forward"], recompute=phases["in_backward"] - bwd,
+                    backward=bwd)
+    want = dict(forward=3 * moe, recompute=3 * moe, backward=6 * moe)
+    require_launches("train", launches, ("grouped_matmul", "argsort", "grouped_matmul_bwd"))
+    if (by_phase != want or launches["grouped_matmul_simt"]
+            or launches["argsort"] != 2 * moe):
+        raise SystemExit(f"FAIL train: grouped matmuls by phase {by_phase} (expected {want}), "
+                         f"launches {launches} (argsort {2 * moe}, no CUDA-core product)")
+    prof = device_profile("one train step", lambda: float(step(state, batch)[1]["loss"]),
+                          {"grouped_matmul": ("grouped_matmul",), "argsort": ARGSORT_KERNELS})
+    PROFILES["train"] = prof
+    info = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, optimizer=opt,
+                remat=cfg.remat, batch=TRAIN["batch"], seq=TRAIN["seq"], lr=TRAIN["lr"],
+                param_count=sum(t.numel() for t in state.params.parameters()),
+                param_bytes=state_bytes, moment_bytes=moment_bytes, init_s=init_s,
+                losses=losses, grad_norms=norms, step_ms=[t * 1e3 for t in step_s],
+                ms_per_step_after_first=float(np.mean(step_s[1:])) * 1e3,
+                max_memory_allocated=peak, launches=launches,
+                grouped_matmul_by_phase=by_phase, profile=prof)
+    by_path["train"] = launches
+    log(f"phase 18a, train ok: {json.dumps(info)}")
+    settle("train", ("grouped_matmul", "argsort"))
+    return state.params, info
+
+
+def topk_path(dev, model, by_path: dict) -> dict:
+    """Phase 18c: ``TOPK["rounds"]`` error-feedback rounds of
+    ``compress_topk`` on 18a's embedding gradient (each round's picks are
+    the largest |grad + residual|, the residual the rest), then
+    ``aggregate_sparse`` over all the rounds' pairs through the argsort and
+    the segmented combine, against ``np.add.at``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import compression as C
+
+    cfg = model.cfg
+    batch = train_batch(cfg, TRAIN["batch"], TRAIN["seq"], dev)
+    for t in model.parameters():
+        t.requires_grad_(t is model.embed)
+    loss, _ = M.lm_loss(model, cfg, batch["tokens"], batch["labels"], backend="cuda")
+    loss.backward()
+    g = model.embed.grad.reshape(-1)
+    model.embed.grad = None
+    st = C.init_topk(g)
+    idx_all, val_all = [], []
+    for r in range(TOPK["rounds"]):
+        acc = g.float() + st.residual
+        idx, val, st = C.compress_topk(g, st, TOPK["k"])
+        back = st.residual.clone()
+        back[idx] = val
+        if not torch.equal(back, acc) or float(st.residual.abs().max()) > float(
+                val.abs().min()):
+            raise SystemExit(f"FAIL topk round {r}: the picks are not the largest entries of "
+                             "grad + residual, or the residual is not the rest")
+        idx_all.append(idx)
+        val_all.append(val)
+    idx, val = torch.cat(idx_all), torch.cat(val_all)
+    n = g.numel()
+    ops.reset_launch_counts()
+    with capture("topk"):
+        t0 = time.perf_counter()
+        dense = C.aggregate_sparse(idx, val, n, backend="cuda")
+        _sync()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    require_launches("topk", launches, ("argsort", "segmented_combine"))
+    want = np.zeros(n, np.float64)
+    hi, hv = idx.cpu().numpy(), val.cpu().numpy()
+    np.add.at(want, hi, hv.astype(np.float64))
+    bound = 2 * hv.size * 2.0 ** -24 * float(np.abs(hv).sum())
+    diff = float(np.abs(dense.cpu().numpy() - want).max())
+    if diff > bound:
+        raise SystemExit(f"FAIL topk aggregate_sparse: {diff} from np.add.at (bound {bound})")
+    info = dict(entries=n, k=TOPK["k"], rounds=TOPK["rounds"], pairs=int(hi.size),
+                distinct=int(np.unique(hi).size), max_abs_diff=diff, bound=bound,
+                aggregate_wall_ms=wall * 1e3, launches=launches)
+    by_path["topk"] = launches
+    log(f"phase 18c, top-k compression ok: {json.dumps(info)}")
+    settle("topk", ("argsort", "segmented_combine"))
+    return info
+
+
+def leaf_close(name: str, got, want, tol: float = 1e-3) -> float:
+    """Fail unless ``got`` is within ``tol`` of ``want``'s largest
+    magnitude; returns the ratio of the largest difference to that bound."""
+    got, want = got.detach(), want.detach()
+    scale = float(want.abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    if diff > tol * max(scale, 1e-6):
+        raise SystemExit(f"FAIL {name}: differs by {diff} (bound {tol} x {scale})")
+    return diff / (tol * max(scale, 1e-6))
+
+
+def train_gate(dev) -> dict:
+    """Phase 18b: qwen3-moe-30b-a3b in float32 at full width cut to
+    ``TRAIN_GATE_LAYERS``, from the same seeded weights and batch: the loss
+    and every gradient leaf with the kernels and with the plain versions on
+    the card (loss rtol 1e-5, leaves within 1e-3 of their largest
+    magnitude, routes equal), then one train step each and the updated
+    parameters within the same bound."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN_GATE_LAYERS,
+                              dtype="float32")
+    batch = train_batch(cfg, TRAIN["batch"], TRAIN["seq"], dev)
+    model = M.trainable(M.init(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    out, grads, rts = {}, {}, {}
+    ops.reset_launch_counts()
+    for backend in ("cuda", "torch"):
+        with (capture("train fp32") if backend == "cuda" else contextlib.nullcontext()), \
+                routes() as rt:
+            loss, _ = M.lm_loss(model, cfg, batch["tokens"], batch["labels"], backend=backend)
+            loss.backward()
+        out[backend], rts[backend] = float(loss.detach()), rt
+        grads[backend] = {n: t.grad for n, t in model.named_parameters()}
+        for t in model.parameters():
+            t.grad = None
+        if backend == "cuda":
+            launches = dict(ops.LAUNCHES)
+    require_launches("train fp32", launches, ("grouped_matmul_simt", "argsort",
+                                              "grouped_matmul_bwd"))
+    if not all(torch.equal(a, b) for a, b in zip(rts["cuda"], rts["torch"])):
+        raise SystemExit("FAIL train fp32: the kernels and the plain versions routed tokens "
+                         "to different experts")
+    if not math.isclose(out["cuda"], out["torch"], rel_tol=1e-5):
+        raise SystemExit(f"FAIL train fp32: loss {out['cuda']} with the kernels, "
+                         f"{out['torch']} with the plain versions (rtol 1e-5)")
+    grad_ratio = max(leaf_close(f"train fp32 grad {n}", g, grads["torch"][n])
+                     for n, g in grads["cuda"].items() if g is not None)
+    del grads, model
+    gc.collect()
+    updated = {}
+    for backend in ("cuda", "torch"):
+        step, init_state, _ = ST.make_train_step(cfg, lr=TRAIN["lr"], backend=backend)
+        state = init_state(torch.Generator(device=dev).manual_seed(SEED))
+        state, _ = step(state, batch)
+        updated[backend] = state.params
+        del state
+        gc.collect()
+    param_ratio = max(leaf_close(f"train fp32 updated {n}", t, dict(
+        updated["torch"].named_parameters())[n]) for n, t in updated["cuda"].named_parameters())
+    del updated
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = dict(layers=cfg.n_layers, dtype=cfg.dtype, loss_kernels=out["cuda"],
+                loss_plain=out["torch"], router_calls=len(rts["cuda"]),
+                worst_grad_share_of_bound=grad_ratio, worst_param_share_of_bound=param_ratio,
+                launches=launches)
+    log(f"phase 18b, train fp32 gate ok: {json.dumps(info)}")
+    settle("train fp32")
+    return info
+
+
+def _driver(ckpt: Path, steps: int, *extra: str) -> subprocess.Popen:
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", DRIVER["arch"], "--smoke",
+         "--steps", str(steps), "--ckpt", str(ckpt), "--log-every", "1", *extra],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _driver_losses(name: str, proc: subprocess.Popen) -> list[float]:
+    text, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"FAIL train driver {name}: rc {proc.returncode}\n{text[-4000:]}")
+    return [float(line.split("loss=")[1].split()[0]) for line in text.splitlines()
+            if line.startswith("step ")]
+
+
+def deepseek_train(dev) -> dict:
+    """deepseek-v3's smoke config (MLA, a dense prefix, MoE through the
+    kernels, MTP) trained ``DEEPSEEK_TRAIN["steps"]`` steps on the card and
+    on the CPU from the same weights and batch: losses within rtol 1e-3,
+    parameters within 1e-3 of each leaf's largest magnitude."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+
+    cfg = get_config(DEEPSEEK, smoke=True)
+    step, init_state, _ = ST.make_train_step(cfg, lr=TRAIN["lr"])
+    cpu = init_state(torch.Generator().manual_seed(SEED))
+    card = ST.TrainState(copy.deepcopy(cpu.params).to(dev),
+                         {k: v.to(dev, copy=True) for k, v in cpu.opt_m.items()},
+                         {k: v.to(dev, copy=True) for k, v in cpu.opt_v.items()}, 0)
+    losses = {}
+    ops.reset_launch_counts()
+    for name in ("cuda", "cpu"):
+        st = card if name == "cuda" else cpu
+        batch = train_batch(cfg, DEEPSEEK_TRAIN["batch"], DEEPSEEK_TRAIN["seq"],
+                            dev if name == "cuda" else torch.device("cpu"))
+        losses[name] = []
+        for _ in range(DEEPSEEK_TRAIN["steps"]):
+            st, met = step(st, batch)
+            losses[name].append(float(met["loss"]))
+        if name == "cuda":
+            card, launches = st, dict(ops.LAUNCHES)
+        else:
+            cpu = st
+    require_launches("deepseek train", launches, ("grouped_matmul_simt", "argsort",
+                                                  "grouped_matmul_bwd"))
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-3, atol=0):
+        raise SystemExit(f"FAIL deepseek train: losses {losses} (rtol 1e-3)")
+    cpu_params = dict(cpu.params.named_parameters())
+    ratio = max(leaf_close(f"deepseek train {n}", t.cpu(), cpu_params[n])
+                for n, t in card.params.named_parameters())
+    return dict(steps=DEEPSEEK_TRAIN["steps"], losses=losses, worst_param_share_of_bound=ratio,
+                launches=launches)
+
+
+def driver_path(dev, out: dict) -> dict:
+    """Phase 18d: ``python -m repro_torch.launch.train`` on the smoke
+    config, once for ``DRIVER["steps"]`` steps and once stopped at
+    ``DRIVER["cut"]`` and resumed with ``--resume``: the resumed run's losses
+    and its final checkpoint (model, moments, step, loader cursor) equal the
+    uninterrupted run's bit for bit.  While the driver's processes start
+    (most of their time: a fresh process's first step takes ~12 s on the
+    card), this process runs 18b into ``out["b"]`` and deepseek-v3's smoke
+    config, card against CPU; neither is timed."""
+    import shutil
+
+    root = ROOT / "build" / "train_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    full = _driver(root / "full", DRIVER["steps"])
+    cut = _driver(root / "cut", DRIVER["cut"])
+    resumed = None
+    try:
+        out["b"] = train_gate(dev)
+        deepseek = deepseek_train(dev)
+        log(f"phase 18d, deepseek-v3 smoke train card = CPU ok: {json.dumps(deepseek)}")
+        first = _driver_losses("cut", cut)
+        resumed = _driver(root / "cut", DRIVER["steps"], "--resume")
+        want = _driver_losses("full", full)
+        rest = _driver_losses("resume", resumed)
+    finally:
+        for proc in [p for p in (full, cut, resumed) if p is not None]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if first + rest != want:
+        raise SystemExit(f"FAIL train driver: {first} + {rest} != {want}")
+    last = f"step_{DRIVER['steps']:08d}"
+    with np.load(root / "full" / last / "shard_p0.npz") as a, \
+            np.load(root / "cut" / last / "shard_p0.npz") as b:
+        if sorted(a.files) != sorted(b.files) or not all(np.array_equal(a[k], b[k])
+                                                         for k in a.files):
+            raise SystemExit("FAIL train driver: the resumed run's checkpoint differs")
+        leaves = len(a.files)
+    info = dict(arch=DRIVER["arch"], steps=DRIVER["steps"], cut=DRIVER["cut"], losses=want,
+                checkpoint_leaves=leaves, wall_s=time.perf_counter() - t0, deepseek=deepseek)
+    log(f"phase 18d, train driver resumed bit for bit: {json.dumps(info)}")
+    shutil.rmtree(root, ignore_errors=True)
+    return info
+
+
+def training_path(dev, by_path: dict) -> dict:
+    """Phase 18: 18a, 18c on 18a's model, then 18d with 18b run while the
+    driver's processes start (after every timed part)."""
+    import torch
+
+    out = {}
+    model, out["a"] = train_path(dev, by_path)
+    out["c"] = topk_path(dev, model, by_path)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d"] = driver_path(dev, out)
+    return out
+
+
 def kernel_records(by_path: dict) -> list[dict]:
     """The kernels' JSON records: each kernel timed and counted on its own
     path, the aggregate's (phase 3) for the aggregate kernels, the merge
@@ -3118,8 +3597,8 @@ def kernel_records(by_path: dict) -> list[dict]:
             library_ms=t["library_ms"], shape=t["shape"], path=path,
             **{k: t[k] for k in ("host_ms", "by_shape", "merge_path_ms", "padded_rows", "m",
                                  "passes", "variant", "on_card_per_call") if k in t},
-            **({"launches_simt": by_path[path]["grouped_matmul_simt"]}
-               if name == "grouped_matmul" else {}),
+            **({"launches_simt": by_path[path]["grouped_matmul_simt"],
+                "backward": BACKWARD_TIMES} if name == "grouped_matmul" else {}),
             device_time_on_path=PROFILES.get(path, {}).get("kernels", {}).get(name),
             other_shapes=[v[name] for p, v in TIMES.items() if p != path and name in v],
             launches_by_path={p: v[name] for p, v in by_path.items()},
@@ -3156,6 +3635,7 @@ def main() -> int:
 
     check_kernels(dev, B=MAIN_CFG["batch_rows"], M=MAIN_CFG["memory_rows"],
                   P=MAIN_CFG["page_rows"])
+    check_grouped_matmul_backward(dev)
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -3194,7 +3674,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for phase, fn in ((14, lambda: dedup_path(dev, by_path)), (15, lambda: dense_path(dev)),
-                      (16, examples_path), (17, lambda: family_path(dev, by_path))):
+                      (16, examples_path), (17, lambda: family_path(dev, by_path)),
+                      (18, lambda: training_path(dev, by_path))):
         t0 = time.perf_counter()
         fn()
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")

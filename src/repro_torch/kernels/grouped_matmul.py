@@ -102,5 +102,49 @@ def grouped_matmul_launch(x: torch.Tensor, w: torch.Tensor, *,
     return out, name
 
 
+class GroupedMatmul(torch.autograd.Function):
+    """The kernel with a backward of its own kernel, for CUDA tensors:
+    ``GroupedMatmul.apply(x, w, capacity, count)``.  ``count(variant)`` is
+    called with the variant of each launch, forward and backward alike
+    (the ``ops`` wrapper counts them).  For ``out = x @ w`` per expert and
+    the output's gradient dY ``(E*C, F)``:
+
+    * dX ``(E*C, D)`` is the same product of dY with ``w[e].T``: the
+      kernel on ``(E*C, F) @ (E, F, D)`` at capacity C;
+    * dW ``(E, D, F)`` is ``x[e].T @ dY[e]``: the kernel on the experts'
+      transposed activations ``(E*D, C)`` times dY as ``(E, C, F)`` at
+      capacity D, whose output ``(E*D, F)`` is dW.
+
+    The transposed operands are contiguous copies; both products run on
+    the variant :func:`variant` picks for their widths (C is a multiple of
+    8 by the sorted dispatch's capacity rule, so bfloat16 stays on the
+    tensor cores)."""
+
+    @staticmethod
+    def forward(ctx, x, w, capacity: int, count):
+        ctx.save_for_backward(x, w)
+        ctx.capacity, ctx.count = capacity, count
+        out, name = grouped_matmul_launch(x, w, capacity=capacity)
+        count(name)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        e, d, f = w.shape
+        c = ctx.capacity
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx, name = grouped_matmul_launch(dy, w.transpose(1, 2).contiguous(), capacity=c)
+            ctx.count(name, backward=True)
+        if ctx.needs_input_grad[1]:
+            xt = x.reshape(e, c, d).transpose(1, 2).contiguous().reshape(e * d, c)
+            dw, name = grouped_matmul_launch(xt, dy.reshape(e, c, f), capacity=d)
+            ctx.count(name, backward=True)
+            dw = dw.reshape(e, d, f)
+        return dx, dw, None, None
+
+
 def is_aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)

@@ -27,9 +27,11 @@ from repro_torch.kernels import (
 )
 
 # "grouped_matmul" counts the tensor-core variant, "grouped_matmul_simt" the
-# CUDA-core one (grouped_matmul.variant)
+# CUDA-core one (grouped_matmul.variant), forward and backward launches
+# alike; "grouped_matmul_bwd" counts the backward's launches among them
 LAUNCHES = {"argsort": 0, "segmented_combine": 0, "merge_absorb": 0, "join_probe": 0,
-            "grouped_matmul": 0, "grouped_matmul_simt": 0, "merge_absorb_bitonic": 0}
+            "grouped_matmul": 0, "grouped_matmul_simt": 0, "grouped_matmul_bwd": 0,
+            "merge_absorb_bitonic": 0}
 
 
 def reset_launch_counts() -> None:
@@ -103,12 +105,17 @@ def merge_absorb_sorted_bitonic(a: AggState, b: AggState) -> AggState:
     return out
 
 
-def moe_grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> torch.Tensor:
-    """``out[e*C + i] = x[e*C + i] @ w[e]``: x ``(E*C, D)``, w ``(E, D, F)``,
-    float32 accumulation, the output in x's dtype."""
-    if x.device.type == "cpu":
-        return grouped_matmul.grouped_matmul_plain(x, w, capacity=capacity)
-    out, name = grouped_matmul.grouped_matmul_launch(x, w, capacity=capacity)
+def _count_grouped_matmul(name: str | None, *, backward: bool = False) -> None:
     if name is not None:
         LAUNCHES["grouped_matmul" if name == "wgmma" else "grouped_matmul_simt"] += 1
-    return out
+        LAUNCHES["grouped_matmul_bwd"] += backward
+
+
+def moe_grouped_matmul(x: torch.Tensor, w: torch.Tensor, *, capacity: int) -> torch.Tensor:
+    """``out[e*C + i] = x[e*C + i] @ w[e]``: x ``(E*C, D)``, w ``(E, D, F)``,
+    float32 accumulation, the output in x's dtype.  Differentiable: on the
+    CPU autograd differentiates the plain version; on the card the
+    backward is the kernel's own (:class:`grouped_matmul.GroupedMatmul`)."""
+    if x.device.type == "cpu":
+        return grouped_matmul.grouped_matmul_plain(x, w, capacity=capacity)
+    return grouped_matmul.GroupedMatmul.apply(x, w, capacity, _count_grouped_matmul)

@@ -9,8 +9,11 @@ reference's weights without transposes: a projection's ``kernel`` is
 ``(d_in, d_out)`` and ``dense`` computes ``x @ kernel``.  Every tensor is
 drawn in float32 from an explicit ``torch.Generator`` with the reference's
 scale, then cast.  The reference's activation-sharding ``hint`` is a no-op
-without a mesh and has no counterpart.  Serving only: parameters carry no
-gradient.
+without a mesh and has no counterpart.  Parameters are built without
+gradients, for serving; ``model.trainable`` switches a model's on for
+training.  With gradients on, the chunked attention rematerializes each
+query chunk in the backward pass, as the reference's ``jax.checkpoint`` of
+its ``q_step``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 
@@ -136,39 +140,52 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 
 
+def _q_chunk(qblk, k, v, q0: int, causal: bool, ck: int):
+    """One query chunk (B, cq, H, D) starting at position ``q0`` against
+    every KV chunk of ``ck`` rows: the online softmax (scores and running
+    sums in float32), the output in q's dtype."""
+    b, cq, h, d = qblk.shape
+    scale = 1.0 / math.sqrt(d)
+    dev = qblk.device
+    q_pos = q0 + torch.arange(cq, device=dev)
+    m = torch.full((b, h, cq), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, cq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, cq, d), dtype=torch.float32, device=dev)
+    for ik in range(k.shape[1] // ck):
+        kblk, vblk = k[:, ik * ck:(ik + 1) * ck], v[:, ik * ck:(ik + 1) * ck]
+        s = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk).to(torch.float32) * scale
+        if causal:
+            k_pos = ik * ck + torch.arange(ck, device=dev)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            s = torch.where(mask[None, None], s, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vblk.to(torch.float32))
+        m = m_new
+    l = torch.clamp_min(l, 1e-20)
+    return (acc / l[..., None]).transpose(1, 2).to(qblk.dtype)  # (B, cq, H, D)
+
+
 def _attn_chunked(q, k, v, *, causal: bool, q_offset: int, chunk_q: int, chunk_k: int):
     """q (B, Sq, H, D); k, v (B, Sk, H, D), already head-repeated.  Memory
     is O(chunk_q x chunk_k) per head; scores and the running sums are in
-    float32, the output in q's dtype."""
+    float32, the output in q's dtype.  With gradients on and more than one
+    query chunk, each chunk is recomputed in the backward pass rather than
+    kept (the reference checkpoints its ``q_step`` the same way)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    scale = 1.0 / math.sqrt(d)
     cq, ck = min(chunk_q, sq), min(chunk_k, sk)
     if sq % cq or sk % ck:
         raise ValueError(f"attention lengths {sq}, {sk} do not divide into chunks {cq}, {ck}")
+    nq = sq // cq
+    remat = nq > 1 and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     outs = []
-    for iq in range(sq // cq):
-        qblk = q[:, iq * cq:(iq + 1) * cq]
-        q_pos = q_offset + iq * cq + torch.arange(cq, device=q.device)
-        m = torch.full((b, h, cq), -math.inf, dtype=torch.float32, device=q.device)
-        l = torch.zeros((b, h, cq), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, h, cq, d), dtype=torch.float32, device=q.device)
-        for ik in range(sk // ck):
-            kblk, vblk = k[:, ik * ck:(ik + 1) * ck], v[:, ik * ck:(ik + 1) * ck]
-            s = torch.einsum("bqhd,bkhd->bhqk", qblk, kblk).to(torch.float32) * scale
-            if causal:
-                k_pos = ik * ck + torch.arange(ck, device=q.device)
-                mask = q_pos[:, None] >= k_pos[None, :]
-                s = torch.where(mask[None, None], s, -math.inf)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhqk,bkhd->bhqd", p, vblk.to(torch.float32))
-            m = m_new
-        l = torch.clamp_min(l, 1e-20)
-        outs.append((acc / l[..., None]).transpose(1, 2).to(q.dtype))  # (B, cq, H, D)
+    for iq in range(nq):
+        args = (q[:, iq * cq:(iq + 1) * cq], k, v, q_offset + iq * cq, causal, ck)
+        outs.append(checkpoint(_q_chunk, *args, use_reentrant=False, preserve_rng_state=False)
+                    if remat else _q_chunk(*args))
     return torch.cat(outs, 1)
 
 

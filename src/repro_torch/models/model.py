@@ -17,8 +17,13 @@ Composition per family, as the reference's:
 * ``encoder`` (hubert): non-causal attention + gelu MLP, a front-end stub.
 
 A ``frontend_stub`` model takes precomputed (B, S, D) embeddings in place
-of token ids.  Training, the loss and the optimiser are not ported
-(ROADMAP Queue 1 item 3d).
+of token ids.  :func:`lm_loss` is the training loss (masked cross-entropy,
+the MoE load-balance term and deepseek-v3's multi-token prediction);
+:func:`trainable` turns a model's gradients on, and with ``cfg.remat``
+the blocks and the hybrid's shared block are rematerialized in training.
+:func:`param_leaves` presents the parameters as the reference's pytree
+leaves (a layer stack as one leaf), which the optimisers and
+:func:`train_state_from_numpy` work on.
 
 The model runs where its weights are: :func:`init` draws them on the
 generator's device, :func:`params_from_numpy` copies the reference's onto
@@ -109,6 +114,35 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Model:
     return Model(cfg, device=resolve_device(gen.device), gen=gen)
 
 
+def trainable(model: Model, on: bool = True) -> Model:
+    """Switch every parameter's gradient on (training) or off (serving, as
+    the model is built); returns the model."""
+    for t in model.parameters():
+        t.requires_grad_(on)
+    return model
+
+
+def leaf_path(name: str) -> str:
+    """The reference's leaf path (``/``-joined) of a port parameter name:
+    ``layers.3.attn.wq.kernel`` is row 3 of ``layers/attn/wq/kernel``."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        del parts[1]
+    return "/".join(parts)
+
+
+def param_leaves(model: Model) -> dict:
+    """The parameters as the reference's pytree leaves, in its flatten
+    order (keys sorted level by level): path -> tensor, or for a layer
+    stack (``layers``, ``dense_layers``) the tuple of its layers' tensors,
+    one leaf of shape ``(L, ...)`` to the optimisers."""
+    groups: dict[str, list] = {}
+    for name, t in model.named_parameters():
+        groups.setdefault(leaf_path(name), []).append(t)
+    return {path: (tuple(groups[path]) if path.split("/")[0] in STACKED else groups[path][0])
+            for path in sorted(groups, key=lambda k: k.split("/"))}
+
+
 def _to_torch(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through float32
@@ -154,6 +188,39 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], *, device="cuda
     if seen != set(want):
         raise KeyError(f"port parameters without a reference value: {sorted(set(want) - seen)}")
     return model
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
+    """A nested dict's leaves by ``/``-joined path."""
+    out = {}
+    for key, sub in tree.items():
+        path = f"{prefix}{key}"
+        out.update(flatten_tree(sub, path + "/") if isinstance(sub, Mapping) else {path: sub})
+    return out
+
+
+def train_state_from_numpy(cfg: ModelConfig, params_tree: Mapping, m_tree: Mapping,
+                           v_tree: Mapping, step: int, *, device="cuda"):
+    """The reference's ``TrainState`` (its parameter pytree and optimiser
+    moments as NumPy arrays, and its step) as the port's: the model by
+    :func:`params_from_numpy` with gradients on, and each moment leaf as it
+    is, by the path of :func:`param_leaves` (AdamW's moments shaped like
+    their leaf, Adafactor's row and column moments in the reference's
+    shapes: a layer stack's are the stack's)."""
+    from repro_torch.launch.steps import TrainState  # the step builders import this module
+
+    model = trainable(params_from_numpy(cfg, params_tree, device=device))
+    leaves = param_leaves(model)
+    dev = model.device
+
+    def moments(tree: Mapping) -> dict:
+        flat = flatten_tree(tree)
+        if set(flat) != set(leaves):
+            raise KeyError(f"moment leaves {sorted(set(flat) ^ set(leaves))} do not match "
+                           "the parameters'")
+        return {k: _to_torch(flat[k]).to(dev) for k in leaves}
+
+    return TrainState(model, moments(m_tree), moments(v_tree), int(step))
 
 
 # ---------------------------------------------------------------------------
@@ -213,9 +280,17 @@ def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, b
         aux = aux + a
         new_m.append(nc)
         a_cache = None if a_caches is None else T.layer_cache(a_caches, g)
-        cat = torch.cat([x, x0], -1)
-        h = L.dense(p.shared_in, cat) + (cat @ p.lora_a[g]) @ p.lora_b[g]
-        h, na, a2 = T.apply_block(p.shared, cfg, h, positions, cache=a_cache)
+
+        def shared_fn(xx, x00, g=g, cache=a_cache):
+            cat = torch.cat([xx, x00], -1)
+            h = L.dense(p.shared_in, cat) + (cat @ p.lora_a[g]) @ p.lora_b[g]
+            return T.apply_block(p.shared, cfg, h, positions, cache=cache)
+
+        if T.remat_on(cfg, x, p.shared, caches):  # the shared blocks' activations dominate
+            h, a2 = T.rematerialized(lambda xx, x00, fn=shared_fn: fn(xx, x00)[::2], x, x0)
+            na = None
+        else:
+            h, na, a2 = shared_fn(x, x0)
         x = x + h
         aux = aux + a2
         olds_a.append(a_cache)
@@ -257,6 +332,58 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
                                            mrope_pos=mrope_pos, dispatch=dispatch,
                                            backend=backend)
     return _head(p, cfg, x), new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# the training loss
+# ---------------------------------------------------------------------------
+
+
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in float32 over the positions whose label is >= 0.
+    The reference contracts a (B, S, V) one-hot to keep vocabulary-sharded
+    logits sharded; one device gathers the gold logit instead (the same
+    value, without a float32 (B, S, V) one-hot: 1.24 GB at qwen3's vocabulary
+    and 2,048 tokens)."""
+    mask = (labels >= 0).to(torch.float32)
+    safe = labels.clamp_min(0).to(torch.int64)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def lm_loss(p: Model, cfg: ModelConfig, tokens, labels, *, mrope_pos=None, dispatch=None,
+            aux_weight: float = 0.01, mtp_weight: float = 0.3, backend="auto"):
+    """``(total, {"nll", "aux"})``: the next-token cross-entropy of
+    ``labels`` (B, S) (negative labels masked), plus ``aux_weight`` times
+    the MoE load-balance loss, plus ``mtp_weight`` times the MTP loss where
+    the config has it."""
+    labels = torch.as_tensor(labels, device=p.device)
+    logits, _, aux = forward(p, cfg, tokens, mrope_pos=mrope_pos, dispatch=dispatch,
+                             backend=backend)
+    loss = _masked_ce(logits, labels)
+    total = loss + aux_weight * aux
+    if cfg.mtp:
+        total = total + mtp_weight * _mtp_loss(p, cfg, tokens, labels)
+    return total, {"nll": loss, "aux": aux}
+
+
+def _mtp_loss(p: Model, cfg: ModelConfig, tokens, labels) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction as the reference approximates it:
+    predict t+2 from (emb(t), emb(t+1)) through ``mtp_proj`` and one extra
+    ``attn_mlp`` block, then the head; the labels rolled by one, the last
+    two masked (no target beyond the sequence's end)."""
+    tokens = torch.as_tensor(tokens, device=p.device)
+    emb = p.embed[tokens.to(torch.int64)]
+    nxt = torch.roll(emb, -1, dims=1)
+    h = L.dense(p.mtp_proj, torch.cat([emb, nxt], -1))
+    b, sq = tokens.shape
+    positions = torch.arange(sq, dtype=torch.int32, device=p.device)[None].expand(b, sq)
+    h, _, _ = T.apply_block(p.mtp_block, cfg, h, positions)
+    lab2 = torch.roll(labels, -1, dims=1).clone()
+    lab2[:, -2:] = -1
+    return _masked_ce(_head(p, cfg, h), lab2)
 
 
 # ---------------------------------------------------------------------------

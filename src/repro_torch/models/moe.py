@@ -13,7 +13,11 @@ Routing tokens to experts is grouping rows (token, k) by key (expert id):
 
 ``sorted_ep`` is served as ``sorted``: the port has no mesh, and the
 reference falls back the same way on one device.  Both modes give equal
-outputs up to capacity drops.
+outputs up to capacity drops.  In training, gradients flow through the
+router's softmax and top-k weights, the scatter into the capacity-padded
+block, the grouped FFN (on the card the grouped matmul's own backward),
+the combine, the shared expert and the load-balance loss; the sort's
+permutation carries none.
 """
 from __future__ import annotations
 

@@ -4,12 +4,17 @@
 A block is ``attn_moe`` (attention + MoE), ``attn_mlp`` (attention + MLP)
 or ``mamba`` (a Mamba2 mixer), pre-norm with residuals; its attention is
 MLA when the config has one.  The stack is an ``nn.ModuleList`` looped in
-Python: serving runs eagerly, so there is no scan and no remat.
+Python (eager: no scan).  Where ``cfg.remat`` is set and gradients are on
+(training), each block is rematerialized: its activations are
+recomputed in the backward pass, as the reference's ``jax.checkpoint`` of
+its scan body.  The recompute routes the MoE tokens again; the backend's
+stable argsort gives them the same order.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -82,6 +87,19 @@ def restack(caches: dict, olds: list[dict], news: list[dict]) -> dict:
     return out
 
 
+def remat_on(cfg: ModelConfig, x: torch.Tensor, module: nn.Module, caches=None) -> bool:
+    """Whether a forward rematerializes ``module``'s blocks: ``cfg.remat``,
+    no caches, and a gradient to take (gradients on, and x or one of the
+    module's parameters requiring one), as in training."""
+    return (cfg.remat and caches is None and torch.is_grad_enabled()
+            and (x.requires_grad or any(t.requires_grad for t in module.parameters())))
+
+
+def rematerialized(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def apply_stack(blocks: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, caches=None, mrope_pos=None, dispatch=None,
                 backend="auto"):
@@ -90,8 +108,19 @@ def apply_stack(blocks: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
     Smax, KH, Dh)``) or MLA's ``{"latent", "k_rope", "index"}``, whose rows
     the layers write in place, with ``index`` ``(L,)`` on the host; or
     Mamba's ``{"conv", "ssm"}``, whose layers return new tensors.  Returns
-    ``(x, new_caches, aux)``."""
+    ``(x, new_caches, aux)``.  Rematerializes each block where
+    :func:`remat_on`."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if remat_on(cfg, x, blocks, caches):
+        for blk in blocks:
+            def run(h, blk=blk):
+                out, _, a = apply_block(blk, cfg, h, positions, mrope_pos=mrope_pos,
+                                        dispatch=dispatch, backend=backend)
+                return out, a
+
+            x, a = rematerialized(run, x)
+            aux = aux + a
+        return x, None, aux
     olds, news = [], []
     for i, blk in enumerate(blocks):
         cache = None if caches is None else layer_cache(caches, i)

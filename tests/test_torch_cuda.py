@@ -191,7 +191,7 @@ def test_wrappers_launch_on_cuda_and_count(dev):
                            torch.ones((2, 96, 8), dtype=torch.bfloat16, device=dev), capacity=5)
     assert ops.LAUNCHES == {"argsort": 1, "segmented_combine": 1, "merge_absorb": 1,
                             "join_probe": 1, "grouped_matmul": 1, "grouped_matmul_simt": 1,
-                            "merge_absorb_bitonic": 1}
+                            "grouped_matmul_bwd": 0, "merge_absorb_bitonic": 1}
 
 
 @pytest.mark.parametrize("key_dtype", [np.uint32, np.uint64])
@@ -771,3 +771,91 @@ def test_gloo_mesh_on_the_card_matches_cpu_ranks(dev, tmp_path):
                         np.testing.assert_allclose(got[f], w, rtol=1e-5, atol=1e-5)
                     else:
                         np.testing.assert_array_equal(got[f], w, err_msg=f"{name} {entry}")
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", [(8, 16, 64, 48), (4, 24, 128, 256), (3, 13, 200, 136)])
+def test_grouped_matmul_backward_on_the_card_matches_plain(dev, e, c, d, f, dtype):
+    """The kernel's own backward (dX and dW, two more launches of the
+    kernel) against the plain version's autograd gradients: within
+    ``gmm_error``'s bound of the float32 products, each product on the
+    variant its dtype and widths call for (dW's inner width is C: bfloat16
+    at C = 13 runs it on the CUDA cores)."""
+    gen = torch.Generator(device=dev).manual_seed(e * c + d + f)
+    x = torch.randn((e * c, d), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((e, d, f), generator=gen, device=dev) / np.sqrt(d)).to(dtype)
+    dy = torch.randn((e * c, f), generator=gen, device=dev).to(dtype)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ops.reset_launch_counts()
+    dx, dw = torch.autograd.grad(ops.moe_grouped_matmul(xg, wg, capacity=c), (xg, wg), dy)
+    torch.cuda.synchronize()
+    # forward (d -> f at c), dX (f -> d at c), dW (c -> f at d)
+    variants = [grouped_matmul.variant(dtype, *dims)[0] for dims in ((d, f, c), (f, d, c),
+                                                                     (c, f, d))]
+    assert ops.LAUNCHES["grouped_matmul"] == variants.count("wgmma")
+    assert ops.LAUNCHES["grouped_matmul_simt"] == variants.count("simt")
+    assert ops.LAUNCHES["grouped_matmul_bwd"] == 2
+    if dtype == torch.bfloat16 and c % 8 == 0:
+        assert variants == ["wgmma"] * 3
+    assert dx.dtype == dw.dtype == dtype
+    assert gmm_error(dx, dy, w.transpose(1, 2).contiguous(), c) <= 1.0
+    xt = x.view(e, c, d).transpose(1, 2).contiguous().view(e * d, c)
+    assert gmm_error(dw.reshape(e * d, f), xt, dy.view(e, c, f), d) <= 1.0
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    pdx, pdw = torch.autograd.grad(grouped_matmul.grouped_matmul_plain(xp, wp, capacity=c),
+                                   (xp, wp), dy)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(dx.float(), pdx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw.float(), pdw.float(), rtol=tol, atol=tol)
+
+
+def test_train_steps_on_the_card_match_cpu(dev):
+    """qwen3-moe's and deepseek-v3's smoke configs (float32), three train
+    steps on the card (the kernels, their backward included) and on the
+    CPU (the plain versions) from the same weights and batch: losses within
+    rtol 1e-4, parameters within 1e-3 of each leaf's largest magnitude."""
+    import copy
+
+    from repro_torch.data import DataLoader
+    from repro_torch.launch import steps as ST
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("qwen3-moe-30b-a3b", "deepseek-v3-671b"):
+        cfg = get_config(arch, smoke=True)
+        step, init_state, _ = ST.make_train_step(cfg, lr=5e-3)
+        cpu = init_state(torch.Generator().manual_seed(3))
+        card = ST.TrainState(copy.deepcopy(cpu.params).to(dev),
+                             {k: v.to(dev) for k, v in cpu.opt_m.items()},
+                             {k: v.to(dev) for k, v in cpu.opt_v.items()}, 0)
+        batch = DataLoader(cfg.vocab, 4, 64, seed=3).next()
+        ops.reset_launch_counts()
+        for _ in range(3):
+            card, a = step(card, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            cpu, b = step(cpu, {k: torch.from_numpy(v) for k, v in batch.items()})
+            np.testing.assert_allclose(float(a["loss"]), float(b["loss"]), rtol=1e-4)
+        assert ops.LAUNCHES["grouped_matmul_bwd"] > 0 and ops.LAUNCHES["argsort"] > 0
+        host = {n: t.detach() for n, t in cpu.params.named_parameters()}
+        for n, t in card.params.named_parameters():
+            bound = 1e-3 * max(float(host[n].abs().max()), 1e-6)
+            assert float((t.detach().cpu() - host[n]).abs().max()) <= bound, n
+
+
+def test_train_driver_resumes_bit_exactly_on_the_card(dev, tmp_path):
+    from repro_torch.launch import train as TR
+
+    kw = dict(smoke=True, batch=2, seq=32, log_every=100, device="cuda")
+    full = TR.train("qwen3-moe-30b-a3b", steps=6, ckpt_dir=str(tmp_path / "a"), **kw)
+    TR.train("qwen3-moe-30b-a3b", steps=3, ckpt_dir=str(tmp_path / "b"), **kw)
+    rest = TR.train("qwen3-moe-30b-a3b", steps=6, ckpt_dir=str(tmp_path / "b"), resume=True,
+                    **kw)
+    assert rest == full[3:]
+    with np.load(tmp_path / "a" / "step_00000006" / "shard_p0.npz") as a, \
+            np.load(tmp_path / "b" / "step_00000006" / "shard_p0.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
