@@ -4,8 +4,8 @@ The module (under ``tests/``) names its cases in ``STORED_CASES``, computes
 the reference's arrays of one case with ``compute(name)`` (entry -> NumPy
 array) and names its file in ``REFERENCE_FILE``.  ``main`` writes every
 case's arrays there as ``"<case>|<entry>"``, or with ``--check`` recomputes
-them and compares with the stored file, dtypes and values bit for bit
-(exit 1 on any difference).
+them (or only the ``--case`` named) and compares with the stored file,
+dtypes and values bit for bit (exit 1 on any difference).
 """
 from __future__ import annotations
 
@@ -31,11 +31,18 @@ def main(module: str, description: str) -> int:
     ap = argparse.ArgumentParser(description=description.splitlines()[0])
     ap.add_argument("--check", action="store_true",
                     help="compare with the stored file instead of writing it")
+    ap.add_argument("--case", action="append",
+                    help="with --check: recompute and compare only this case (repeatable)")
     args = ap.parse_args()
     mod = importlib.import_module(module)
+    names = mod.STORED_CASES
+    if args.case:
+        if not args.check or set(args.case) - set(names):
+            ap.error(f"--case takes --check and cases of {names}")
+        names = tuple(args.case)
     out: dict[str, np.ndarray] = {}
     t0 = time.perf_counter()
-    for name in mod.STORED_CASES:
+    for name in names:
         out.update({f"{name}|{k}": np.asarray(v) for k, v in mod.compute(name).items()})
         jax.clear_caches()  # one process compiles every case's programs
         print(f"[{time.perf_counter() - t0:7.1f} s] {name}", flush=True)
@@ -46,10 +53,11 @@ def main(module: str, description: str) -> int:
         print(f"wrote {len(mod.STORED_CASES)} cases to {path.relative_to(ROOT)}")
         return 0
     stored = np.load(path)
-    bad = sorted(set(stored.files) ^ set(out))
+    files = [k for k in stored.files if k.split("|")[0] in names]
+    bad = sorted(set(files) ^ set(out))
     bad += [k for k in out if k in stored.files and not (
         out[k].dtype == stored[k].dtype and np.array_equal(out[k], stored[k]))]
     for k in bad:
         print(f"differs: {k}")
-    print(f"{len(mod.STORED_CASES)} cases, {len(out)} arrays, {len(bad)} differences")
+    print(f"{len(names)} cases, {len(out)} arrays, {len(bad)} differences")
     return 1 if bad else 0

@@ -23,10 +23,19 @@ mesh's process group.
 * :func:`local_slice` gives rank ``r`` exactly the rows the reference's
   ``P(axis)`` sharding gives device ``r``, EMPTY/zero padding included,
   so that both packages can be fed the same shards.
+* :func:`make_mesh` / :class:`NamedMesh` are the model paths' meshes of
+  named axes (``("data", "model")``, ``("pod", "data", "model")``), with a
+  1-D sub-mesh (and its process group) for every product of axes.
+* :func:`psum`, :func:`pmean`, :func:`all_gather_tiled`,
+  :func:`all_to_all_blocks` and :func:`ppermute` are collectives with a
+  gradient, and :func:`replicated_input` / :func:`replicated_output` the
+  boundary of per-rank work, in the reference's ``shard_map`` gradient
+  convention (set out above them below).
 
 Gloo takes CUDA tensors for the three collectives used here and stages
 them through host memory itself (probed on an H100 with torch 2.11.0 and
-CUDA 12.8: ``all_to_all_single``, ``all_gather`` and ``all_reduce``), so
+CUDA 12.8: ``all_to_all_single``, ``all_gather`` and ``all_reduce``;
+``ppermute`` is an ``all_to_all_single`` too), so
 ranks that share a card pass their device tensors as they are.  A gloo
 collective on CUDA tensors synchronises the card's stream: a wait that
 ``types.SYNCS`` does not count.  A collective that fails raises; nothing
@@ -36,6 +45,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 from typing import Any
 
@@ -49,12 +60,15 @@ BACKENDS = ("gloo", "nccl")
 
 # collectives this process took part in: on card tensors (each one, on
 # gloo, also waits for the card's stream: a sync ``SYNCS`` does not see),
-# and on host tensors
-COLLECTIVES = {"card": 0, "host": 0}
+# on host tensors, and by kind (the ``torch.distributed`` call made; a
+# ``ppermute`` is an ``all_to_all_single`` with one nonzero split each way)
+KINDS = ("all_gather", "all_to_all", "all_reduce", "ppermute")
+COLLECTIVES = {"card": 0, "host": 0, **{k: 0 for k in KINDS}}
 
 
-def _count(t: torch.Tensor) -> None:
+def _count(t: torch.Tensor, kind: str) -> None:
     COLLECTIVES["card" if t.is_cuda else "host"] += 1
+    COLLECTIVES[kind] += 1
 
 
 def _env_int(*names: str) -> int | None:
@@ -178,6 +192,107 @@ def data_mesh(axis: str = "shard", *, device="cuda", ranks=None) -> Mesh | None:
                 group=group, backend=backend)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedMesh:
+    """A mesh of ranks with named axes (counterpart of a ``jax.make_mesh``
+    mesh): ``axis_names``, ``shape`` (axis -> size, in axis order, as a JAX
+    mesh's ``shape``), this rank's ``coords`` (axis -> coordinate), its
+    ``rank`` among the mesh's ``world`` ranks (row-major over the axes), its
+    ``device`` and the collective ``backend``.  :meth:`sub` gives the 1-D
+    :class:`Mesh` of one axis or of a product of axes: the ranks that share
+    this rank's coordinates on every other axis, in row-major order over
+    the named ones (JAX's ``axis_index`` of that tuple of axes)."""
+
+    axis_names: tuple
+    shape: dict
+    coords: dict
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+    subs: dict  # tuple of axes (in mesh order) -> Mesh
+
+    def sub(self, axes) -> Mesh:
+        """The 1-D sub-mesh of ``axes`` (an axis name or a tuple of them in
+        the mesh's order; ``()`` is this rank alone)."""
+        key = (axes,) if isinstance(axes, str) else tuple(axes)
+        if key not in self.subs:
+            raise ValueError(f"no sub-mesh {key}: axes are {self.axis_names}, taken in that "
+                             "order")
+        return self.subs[key]
+
+
+_GROUPS: dict = {}  # member ranks -> the process group make_mesh made for them
+
+
+def make_mesh(shape, axes, *, device="cuda", ranks=None) -> NamedMesh | None:
+    """A mesh of named axes over the ranks :func:`init_distributed` joined
+    (counterpart of ``jax.make_mesh`` and of the reference's
+    ``launch.mesh.make_test_mesh``): rank ``ranks[i]`` (default: every
+    rank, in order) sits at the row-major coordinates of ``i`` in
+    ``shape``.  Every sub-mesh of a product of axes gets its process groups
+    here, made by ``torch.distributed.new_group`` on every rank of the world
+    in one order (as it demands; a rank outside ``ranks`` makes them too,
+    and gets None), one group for each set of members however many meshes
+    ask for it.  A sub-mesh of one rank needs no group, nor does a
+    mesh of one rank without ``init_distributed``; the sub-mesh of every
+    axis over the whole world is the default group."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes) or min(shape, default=1) < 1:
+        raise ValueError(f"mesh shape {shape} and axes {axes} do not match")
+    size = math.prod(shape)
+    if dist.is_initialized():
+        everyone = list(range(dist.get_world_size()))
+        members = everyone if ranks is None else sorted(int(r) for r in ranks)
+        me, backend = dist.get_rank(), str(dist.get_backend())
+    else:
+        members = everyone = [0]
+        me, backend = 0, "none"
+    if len(members) != size or not set(members) <= set(everyone):
+        raise ValueError(f"a mesh of shape {shape} needs {size} ranks, got {members} of "
+                         f"{len(everyone)}")
+    inside = me in members
+    coords = np.unravel_index(members.index(me), shape) if inside else None
+    dev = _rank_device(device, backend) if inside else None
+    subs = {}
+
+    def group_of(grp: list):
+        key = tuple(grp)
+        if key not in _GROUPS:  # one group per member set: every rank asks in one order
+            _GROUPS[key] = dist.new_group(grp)
+        return _GROUPS[key]
+
+    for n_axes in range(len(axes) + 1):
+        for named in itertools.combinations(range(len(axes)), n_axes):
+            others = [i for i in range(len(axes)) if i not in named]
+            sub_shape = tuple(shape[i] for i in named)
+            sub_world = math.prod(sub_shape)
+            group = None
+            if sub_world > 1 and not (sub_world == size and members == everyone):
+                for fixed in itertools.product(*(range(shape[i]) for i in others)):
+                    at = np.zeros(len(axes), np.int64)
+                    at[others] = fixed
+                    grp = []
+                    for inner in itertools.product(*(range(n) for n in sub_shape)):
+                        at[list(named)] = inner
+                        grp.append(members[int(np.ravel_multi_index(at, shape))])
+                    g = group_of(grp)
+                    if inside and all(coords[i] == v for i, v in zip(others, fixed)):
+                        group = g
+            if inside:
+                sub_rank = (int(np.ravel_multi_index([coords[i] for i in named], sub_shape))
+                            if named else 0)
+                key = tuple(axes[i] for i in named)
+                subs[key] = Mesh(axis="+".join(key), world=sub_world, rank=sub_rank,
+                                 device=dev, group=group, backend=backend)
+    if not inside:
+        return None
+    return NamedMesh(axis_names=axes, shape=dict(zip(axes, shape)),
+                     coords={a: int(c) for a, c in zip(axes, coords)},
+                     rank=members.index(me), world=size, device=dev, backend=backend,
+                     subs=subs)
+
+
 def resolve_mesh_axis(mesh: Mesh, mesh_axis: str | None) -> str:
     """The mesh axis the pipeline shards over (default: the mesh's)."""
     if mesh_axis is None:
@@ -222,7 +337,7 @@ def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
         return t[None].clone()
     src = t.contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
-    _count(src)
+    _count(src, "all_gather")
     dist.all_gather(parts, src, group=mesh.group)
     return torch.stack(parts)
 
@@ -234,7 +349,7 @@ def all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
         return t.clone()
     src = t.contiguous()
     out = torch.empty_like(src)
-    _count(src)
+    _count(src, "all_to_all")
     dist.all_to_all_single(out, src, group=mesh.group)
     return out
 
@@ -246,7 +361,7 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, op: str) -> torch.Tensor:
     if mesh.world == 1:
         return t.clone()
     buf = t.clone()
-    _count(buf)
+    _count(buf, "all_reduce")
     dist.all_reduce(buf, op=red, group=mesh.group)
     return buf
 
@@ -270,3 +385,167 @@ def barrier(mesh: Mesh) -> None:
             dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
         else:
             dist.barrier(group=mesh.group)
+
+
+def ppermute_start(mesh: Mesh, t: torch.Tensor, shift: int = 1):
+    """Start sending ``t`` to rank ``(r + shift) mod world`` and receiving
+    the tensor of the same shape that rank ``(r - shift) mod world`` sends:
+    returns ``(out, work)``, and ``out`` holds the received tensor once
+    ``work.wait()`` returned (None for a mesh of one rank, whose ``out`` is
+    a copy).  One ``all_to_all_single`` with a single nonzero split each
+    way, a collective gloo takes on card tensors as it takes the equal
+    splits (it stages them through host memory itself)."""
+    if mesh.world == 1 or shift % mesh.world == 0:
+        return t.clone(), None
+    src = t.contiguous().reshape(-1)
+    out = torch.empty_like(src)
+    send, recv = [0] * mesh.world, [0] * mesh.world
+    send[(mesh.rank + shift) % mesh.world] = src.numel()
+    recv[(mesh.rank - shift) % mesh.world] = src.numel()
+    _count(src, "ppermute")
+    work = dist.all_to_all_single(out, src, output_split_sizes=recv, input_split_sizes=send,
+                                  group=mesh.group, async_op=True)
+    return out.view(t.shape), work
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (the reference's shard_map gradients)
+# ---------------------------------------------------------------------------
+#
+# The gradient convention is the reference's: ``shard_map`` with its
+# replication check off, as its mesh paths are written.  The loss is one
+# function of every rank's outputs, each value counted once however many
+# ranks hold a copy of it.  So
+#
+# * an output replicated over a sub-mesh of n ranks gives each copy 1/n of
+#   its cotangent (:func:`replicated_output`);
+# * an input replicated over a sub-mesh receives the sum of its copies'
+#   cotangents (:func:`replicated_input`, JAX's ``pvary``);
+# * in between, each collective's backward is its transpose: ``psum``'s is
+#   ``psum``, the tiled all-gather's is a reduce-scatter (an all-reduce,
+#   then this rank's slice: gloo has no reduce-scatter), the all-to-all's
+#   the same all-to-all, and ``ppermute``'s the reverse ``ppermute``.
+#
+# Every rank must call ``backward`` on its loss, as every rank ran the
+# forward: the backward's collectives are collectives too.
+
+
+class _ReplicatedInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(ctx.mesh, g, "sum"), None
+
+
+class _ReplicatedOutput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.world = mesh.world
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.world, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_reduce(mesh, t, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(ctx.mesh, g, "sum"), None
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, t.shape[dim]
+        return torch.cat(list(all_gather(mesh, t)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = all_reduce(ctx.mesh, g, "sum")
+        return full.narrow(ctx.dim, ctx.mesh.rank * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_to_all(mesh, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(ctx.mesh, g), None
+
+
+def _ppermute_done(mesh: Mesh, t: torch.Tensor, shift: int) -> torch.Tensor:
+    out, work = ppermute_start(mesh, t, shift)
+    if work is not None:
+        work.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, shift):
+        ctx.mesh, ctx.shift = mesh, shift
+        return _ppermute_done(mesh, t, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute_done(ctx.mesh, g, -ctx.shift), None, None
+
+
+def replicated_input(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t``, which every rank of ``mesh`` holds alike, entering per-rank
+    work: the identity; its gradient is the sum over the ranks of theirs
+    (JAX's ``pvary``; ``shard_map``'s ``psum`` of an unsharded input's
+    cotangent)."""
+    return _ReplicatedInput.apply(t, mesh)
+
+
+def replicated_output(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t``, equal on every rank of ``mesh``, leaving as one value: the
+    identity; each rank's copy takes 1/world of the cotangent
+    (``shard_map``'s division of an unsharded output's cotangent)."""
+    return _ReplicatedOutput.apply(t, mesh)
+
+
+def psum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks; the backward sums the cotangents."""
+    return _PSum.apply(t, mesh)
+
+
+def pmean(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` averaged over the ranks (``psum / world``)."""
+    return psum(mesh, t) / mesh.world
+
+
+def all_gather_tiled(mesh: Mesh, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (JAX's
+    ``all_gather(tiled=True)``); the backward is a reduce-scatter: the
+    cotangents summed over the ranks, and this rank's slice of them."""
+    return _AllGatherTiled.apply(t, mesh, dim)
+
+
+def all_to_all_blocks(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Block ``i`` of ``t``'s leading axis (``world`` equal blocks) goes to
+    rank ``i``; block ``i`` of the result came from rank ``i`` (JAX's
+    ``all_to_all`` with split and concat axis 0).  Its own transpose: the
+    backward sends the cotangents' blocks back the same way."""
+    return _AllToAll.apply(t, mesh)
+
+
+def ppermute(mesh: Mesh, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """``t`` sent to rank ``(r + shift) mod world`` around the ring (JAX's
+    ``ppermute`` with that permutation); the backward sends the cotangent
+    back, ``-shift``."""
+    return _PPermute.apply(t, mesh, shift)

@@ -10,7 +10,11 @@ dicts: ``tokens`` (B, S) ids or a front-end stub's (B, S, D) embeddings,
 passed through as they are), and ``mrope_pos`` (3, B, S) for an ``mrope``
 model.  ``backend`` picks the MoE block's sort and grouped matmul
 (``"auto"``: by device; ``"torch"``: the plain versions; ``"cuda"``: the
-kernels, the grouped matmul's backward included).  The reference's
+kernels, the grouped matmul's backward included).  On a mesh (a
+``sorted_ep`` config with ``mesh_axes`` and a mesh registered by
+``distributed.moe_parallel.set_current_mesh``) the steps run unchanged on
+every rank, each fed its data shard of the batch
+(``sharding.local_slice(x, mesh.sub(data axes))``).  The reference's
 dry-run helpers (``input_specs``, ``abstract_train_state``,
 ``state_shardings``, ``batch_shardings``) are not ported (ROADMAP Queue 1
 item 3f).

@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed import moe_parallel as MP
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -67,7 +68,8 @@ class Model(nn.Module):
     ``lora_b`` (G, r, D); ``ln_f``; ``unembed`` (D, V) unless the
     embeddings are tied; ``mtp_block`` and ``mtp_proj`` (2D, D) for MTP."""
 
-    def __init__(self, cfg: ModelConfig, *, device, gen: torch.Generator | None = None):
+    def __init__(self, cfg: ModelConfig, *, device, gen: torch.Generator | None = None,
+                 experts=None):
         super().__init__()
         self.cfg = cfg
         dtype = _dtype(cfg)
@@ -75,7 +77,8 @@ class Model(nn.Module):
         d = cfg.d_model
 
         def stack(kind: str, n: int) -> nn.ModuleList:
-            return nn.ModuleList(T.Block(cfg, kind, gen=gen, **kw) for _ in range(n))
+            return nn.ModuleList(T.Block(cfg, kind, gen=gen, experts=experts, **kw)
+                                 for _ in range(n))
 
         self.embed = L.param(L.normal(gen, (cfg.vocab, d), 0.01, **kw))
         self.dense_layers = None
@@ -107,11 +110,21 @@ class Model(nn.Module):
         return self.embed.device
 
 
-def init(cfg: ModelConfig, gen: torch.Generator) -> Model:
+def _experts(cfg: ModelConfig, mesh):
+    """The expert slice an MoE layer keeps on this rank of ``mesh`` (None:
+    every expert)."""
+    return None if mesh is None or cfg.moe is None else MP.expert_slice(cfg, mesh)
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, *, mesh=None) -> Model:
     """Random weights with the reference's scales, drawn one tensor at a
     time in float32 from ``gen`` on its device and cast to the config's
-    dtype."""
-    return Model(cfg, device=resolve_device(gen.device), gen=gen)
+    dtype.  On a ``mesh`` with a ``"model"`` axis each MoE layer keeps only
+    this rank's expert slice and router columns
+    (:func:`repro_torch.distributed.moe_parallel.expert_slice`): the draw
+    is one process's, and a layer's whole expert tensor is held only while
+    it is cut."""
+    return Model(cfg, device=resolve_device(gen.device), gen=gen, experts=_experts(cfg, mesh))
 
 
 def trainable(model: Model, on: bool = True) -> Model:
@@ -150,20 +163,32 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], *, device="cuda") -> Model:
+def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], *, device="cuda",
+                      mesh=None) -> Model:
     """The reference's parameter pytree (NumPy arrays; the layer stacks
     stacked ``(L, ...)`` under ``"layers"`` and ``"dense_layers"``) as the
     port's model on ``device``: every leaf copied as it is, no transposes,
     a stack's row i to its layer i, every other subtree (the shared block,
-    the LoRA tensors stacked by group, the MTP weights) as it is.  Raises
-    unless the tree's leaves and the model's parameters match one to one."""
-    model = Model(cfg, device=resolve_device(device))
+    the LoRA tensors stacked by group, the MTP weights) as it is.  On a
+    ``mesh`` with a ``"model"`` axis, each MoE layer takes only this rank's
+    slice of ``wi``/``wg``/``wo`` and of the router's columns, as the
+    reference's expert-parallel ``shard_map`` hands them to the rank.
+    Raises unless the tree's leaves and the model's parameters match one to
+    one."""
+    experts = _experts(cfg, mesh)
+    model = Model(cfg, device=resolve_device(device), experts=experts)
     want = dict(model.named_parameters())
     seen = set()
 
     def put(name: str, value: torch.Tensor) -> None:
         if name not in want:
             raise KeyError(f"reference parameter {name} has no place in the port's model")
+        if experts is not None and ".moe." in f".{name}":
+            lo, hi = experts
+            if name.endswith(("moe.wi", "moe.wg", "moe.wo")):
+                value = value[lo:hi]
+            elif name.endswith("moe.router.kernel"):
+                value = value[:, lo:hi]
         dst = want[name]
         if tuple(dst.shape) != tuple(value.shape):
             raise ValueError(f"{name}: reference shape {tuple(value.shape)}, port "

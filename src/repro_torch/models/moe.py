@@ -11,9 +11,13 @@ Routing tokens to experts is grouping rows (token, k) by key (expert id):
 * ``dense`` — one-hot dispatch/combine einsums, the "hash aggregation"
   analogue, with the same grouped FFN over ``C = B*S`` rows per expert.
 
-``sorted_ep`` is served as ``sorted``: the port has no mesh, and the
-reference falls back the same way on one device.  Both modes give equal
-outputs up to capacity drops.  In training, gradients flow through the
+``sorted_ep`` is expert parallelism over a mesh of ranks
+(:mod:`repro_torch.distributed.moe_parallel`): it runs where the config
+names mesh axes (``cfg.mesh_axes``) and a mesh with a ``"model"`` axis is
+registered (``moe_parallel.set_current_mesh``); otherwise it is served as
+``sorted``, as the reference falls back on one device.  A layer built for
+a mesh holds only its rank's slice of the experts (``MoE(experts=)``) and
+runs only that way.  The modes give equal outputs up to capacity drops.  In training, gradients flow through the
 router's softmax and top-k weights, the scatter into the capacity-padded
 block, the grouped FFN (on the card the grouped matmul's own backward),
 the combine, the shared expert and the load-balance loss; the sort's
@@ -31,30 +35,58 @@ from repro_torch.models.layers import MLP, Dense, dense, mlp, normal, param
 
 
 class MoE(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, dtype, device, gen=None):
+    """The router ``(D, E)``, the experts' ``wi``/``wg`` ``(E, D, F)`` and
+    ``wo`` ``(E, F, D)``, and the shared expert.  ``experts=(lo, hi)`` keeps
+    only experts ``lo..hi-1`` and those router columns (an expert-parallel
+    rank's slice): the draw from ``gen`` is the whole model's, one tensor
+    at a time, so a rank's weights are the slices of one process's."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device, gen=None, experts=None):
         super().__init__()
         m = cfg.moe
         d, e, eff = cfg.d_model, m.num_experts, m.d_ff_expert
+        lo, hi = experts or (0, e)
+
+        def experts_of(shape, scale):
+            if gen is None:
+                return param(normal(None, (hi - lo,) + shape, scale, dtype, device))
+            return param(normal(gen, (e,) + shape, scale, dtype, device)[lo:hi].clone())
+
         self.router = Dense(d, e, dtype=dtype, device=device, gen=gen)
-        self.wi = param(normal(gen, (e, d, eff), 1.0 / (d ** 0.5), dtype, device))
-        self.wg = param(normal(gen, (e, d, eff), 1.0 / (d ** 0.5), dtype, device))
-        self.wo = param(normal(gen, (e, eff, d), eff ** -0.5, dtype, device))
+        if (lo, hi) != (0, e):
+            self.router.kernel = param(self.router.kernel[:, lo:hi].contiguous())
+        self.wi = experts_of((d, eff), 1.0 / (d ** 0.5))
+        self.wg = experts_of((d, eff), 1.0 / (d ** 0.5))
+        self.wo = experts_of((eff, d), eff ** -0.5)
         self.shared = (MLP(d, eff * m.num_shared_experts, "swiglu", dtype=dtype, device=device,
                            gen=gen) if m.num_shared_experts else None)
 
 
 def _router(p: MoE, cfg: ModelConfig, x: torch.Tensor):
     """(B, S, D) → top-k expert ids (B, S, K), weights (B, S, K) in x's
-    dtype, and the float32 router probabilities (B, S, E).  A stable
+    dtype, and the float32 router probabilities (B, S, E)."""
+    return _route(dense(p.router, x).to(torch.float32), cfg, x.dtype)
+
+
+def _route(logits: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype):
+    """:func:`_router` from the float32 router logits (B, S, E).  A stable
     descending sort puts the lower expert id first on a tie, as
     ``jax.lax.top_k`` does."""
     m = cfg.moe
-    probs = torch.softmax(dense(p.router, x).to(torch.float32), dim=-1)
+    probs = torch.softmax(logits, dim=-1)
     vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = vals[..., :m.top_k], order[..., :m.top_k]
     if m.router_scale:
         w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
-    return idx, w.to(x.dtype), probs
+    return idx, w.to(dtype), probs
+
+
+def load_balance(probs: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
+    """The load-balance auxiliary loss of router probabilities (B, S, E)
+    and top-k ids (B, S, K): ``E * sum(mean prob * mean assignment)``."""
+    me = probs.mean(dim=(0, 1))
+    frac = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1, 2))
+    return e * torch.sum(me * frac)
 
 
 def _expert_ffn(p: MoE, xs: torch.Tensor, be) -> torch.Tensor:
@@ -138,9 +170,16 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, dispatch: str | None
     m = cfg.moe
     mode = dispatch or m.dispatch
     if mode == "sorted_ep":
+        from repro_torch.distributed import moe_parallel as MP
+
+        if cfg.mesh_axes is not None and MP.registered_ep_mesh() is not None:
+            return MP.ep_moe_block(p, cfg, x, backend=backend)
         mode = "sorted"  # one device: the same math, no expert parallelism
     if mode not in ("sorted", "dense"):
         raise ValueError(f"unknown MoE dispatch {mode!r}")
+    if p.wi.shape[0] != m.num_experts:
+        raise ValueError(f"this MoE layer holds {p.wi.shape[0]} of {m.num_experts} experts "
+                         "(a rank's slice): it runs only as sorted_ep on a registered mesh")
     be = backends.get_backend(backend, x.device)
     idx, w, probs = _router(p, cfg, x)
     if mode == "sorted":
@@ -149,7 +188,4 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, dispatch: str | None
         y = _moe_dense_dispatch(p, cfg, x, idx, w, be)
     if p.shared is not None:
         y = y + mlp(p.shared, x, "swiglu")
-    me = probs.mean(dim=(0, 1))
-    frac = F.one_hot(idx, m.num_experts).to(torch.float32).mean(dim=(0, 1, 2))
-    aux = m.num_experts * torch.sum(me * frac)
-    return y, aux
+    return y, load_balance(probs, idx, m.num_experts)

@@ -25,7 +25,10 @@ KINDS = ("attn_moe", "attn_mlp", "mamba")
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, kind: str, *, dtype, device, gen=None):
+    """``experts``: an expert-parallel rank's slice of an ``attn_moe``
+    block's experts (:class:`repro_torch.models.moe.MoE`)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, dtype, device, gen=None, experts=None):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}; one of {KINDS}")
@@ -40,7 +43,7 @@ class Block(nn.Module):
         self.attn = (L.MLA(cfg, gen=gen, **kw) if cfg.mla is not None
                      else L.Attention(cfg, gen=gen, **kw))
         if kind == "attn_moe":
-            self.moe = MOE.MoE(cfg, gen=gen, **kw)
+            self.moe = MOE.MoE(cfg, gen=gen, experts=experts, **kw)
         else:
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.act, gen=gen, **kw)
 

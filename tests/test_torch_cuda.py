@@ -773,6 +773,39 @@ def test_gloo_mesh_on_the_card_matches_cpu_ranks(dev, tmp_path):
                         np.testing.assert_array_equal(got[f], w, err_msg=f"{name} {entry}")
 
 
+def test_ep_block_on_the_card_matches_plain(dev, tmp_path):
+    """Two ranks share the card over gloo on mesh (1, 2): the sorted_ep
+    block of the smoke config, float32 forward and backward, the kernels
+    (the argsort, the grouped matmul and its backward) against the plain
+    versions on the same inputs (rtol/atol 1e-5; gradients within 1e-4 of
+    each leaf's largest magnitude); a bfloat16 forward on the tensor-core
+    grouped matmul."""
+    import _torch_ep_cases as cases
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=cases.card_rank_main, daemon=True,
+                         args=(r, 2, str(tmp_path / "rdv"), q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    got = dict(q.get(timeout=300) for _ in procs)
+    for p in procs:
+        p.join(timeout=60)
+    for r, res in got.items():
+        assert isinstance(res, dict), res
+        card, plain = res["float32 cuda"], res["float32 torch"]
+        np.testing.assert_allclose(card["y"], plain["y"], rtol=1e-5, atol=1e-5)
+        assert card["aux"] == pytest.approx(plain["aux"], rel=1e-6)
+        for leaf in ("dx", "g_wi", "g_wg", "g_wo", "g_router"):
+            scale = np.abs(plain[leaf]).max()
+            assert np.abs(card[leaf] - plain[leaf]).max() <= 1e-4 * scale, (r, leaf)
+        assert card["launches"]["argsort"] > 0 and card["launches"]["grouped_matmul_bwd"] > 0
+        assert plain["launches"]["argsort"] == 0
+        bf16 = res["bfloat16 cuda"]["launches"]
+        assert bf16["grouped_matmul"] > 0 and bf16["grouped_matmul_simt"] == 0
+        assert np.isfinite(res["bfloat16 cuda"]["y"]).all()
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
