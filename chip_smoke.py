@@ -69,8 +69,9 @@ with a non-zero exit):
    ``early_agg`` policies; the host loop (``pipeline="host"``) with
    replacement selection, with read-sort-write early aggregation, and
    with traditional merges in place of the wide merge; the front door's
-   ``sort_then_stream``, ``hash``, ``f1_hash`` and ``inmemory``
-   algorithms and ``hash`` with ``order_by``; ``intersect_distinct`` of
+   ``sort_then_stream``, ``f1_hash`` and ``inmemory`` algorithms and
+   ``hash`` with ``order_by`` (plain ``hash`` only at phase 5's 2^20
+   rows, cut for time); ``intersect_distinct`` of
    the order keys against phase 6's ``orders``.  Each must equal the
    NumPy oracle exactly (a hash result as a set, its rows in hash order)
    and launch its kernels; each logs its wall, rows/s, host syncs, peak
@@ -84,7 +85,7 @@ with a non-zero exit):
    and ``SpillStats``; b) the same batches with ``algorithm="auto"``
    (adaptive), equal to the oracle, with its arms, events and readbacks
    logged; c) ``benchmarks/bench_adaptive.py``'s phase-change streams
-   (67,108,864 rows, both orders) through adaptive and each fixed arm,
+   (33,554,432 rows, both orders) through adaptive and each fixed arm,
    each equal to the oracle, with each phase's wall; d) a phase-change
    stream of 2^20 rows at the spill-parity ``ExecConfig`` with a governor
    made to switch, through the card and the plain CPU path: equal
@@ -123,7 +124,7 @@ with a non-zero exit):
    card and on CPU ranks over the same gloo group: equal rows and
    ``SpillStats``, which equal the ranks' one-device runs reduced but for
    the exchange's fields; e) ``python -m repro_torch.launch.shard_agg
-   --world 4 --dist-backend gloo`` at 2^26 rows, Zipf s = 1.2, against its
+   --world 4 --dist-backend gloo`` at 2^23 rows, Zipf s = 1.2, against its
    oracle, and its ``--smoke``.  Each rank counts its kernels' launches
    from zero and fails if one never launched; rank 0 holds its kernels'
    inputs against the plain versions.  Part a runs again on NCCL, one rank
@@ -180,14 +181,14 @@ with a non-zero exit):
    ``compress_topk`` on 18a's embedding gradient (311,164,928 entries, k
    = 2^18), then ``aggregate_sparse`` of the 2^20 pairs through the
    argsort and the segmented combine against ``np.add.at``; d) ``python
-   -m repro_torch.launch.train`` on the smoke config for 20 steps, and
-   stopped at 10 then ``--resume``d: losses and the final checkpoint
+   -m repro_torch.launch.train`` on the smoke config for 8 steps, and
+   stopped at 4 then ``--resume``d: losses and the final checkpoint
    equal bit for bit; deepseek-v3's smoke config (MTP, MLA) trained 3
    steps on the card and on the CPU, within 1e-3;
 19. expert parallelism: 4 ranks (``torch.multiprocessing`` processes
    joined over gloo, sharing the card) on meshes of named axes
    (``sharding.make_mesh``): a) qwen3-moe-30b-a3b in bfloat16 at full
-   width cut to 24 of its 48 layers through the ``sorted_ep`` dispatch on
+   width cut to 12 of its 48 layers through the ``sorted_ep`` dispatch on
    data x model (1, 4), each rank drawing the one-process weights and
    keeping its 32 of 128 experts, batch 4, prompt 256, 16 greedy tokens:
    finite logits, the same tokens on every rank, every grouped matmul on
@@ -208,7 +209,29 @@ with a non-zero exit):
    output within 1e-5 and stage gradients within 1e-4 of the sequential
    model, bubble fraction 3/11.  Rank 0 holds the kernels' inputs of
    parts a-c against the plain versions; part a runs again on NCCL, one
-   rank a card, where there are two cards.
+   rank a card, where there are two cards;
+20. the model half of sharding, on phase 19's ranks: every parameter and
+   moment sharded by the reference's logical-axis rules
+   (``distributed.fsdp``: each layer's leaves all-gathered where it runs,
+   each gradient reduced to its shard): a) qwen3-moe in bfloat16 at full
+   width cut to 4 layers (3.115 G parameters) on (2, 2), ``sorted_ep``
+   through the kernels (every product on ``wgmma``), AdamW, 5 steps of a
+   global 4 x 512 batch at lr 5e-3: losses equal on every rank and
+   falling, each rank's bytes at rest equal to the spec arithmetic, ms a
+   step, peak memory, collectives a step by kind and bytes, launches, and
+   the H100 roofline's terms (``FlopCounterMode`` plus the grouped
+   matmul's products, HBM bytes, the collectives' bytes); c) its
+   parameters and every AdamW moment leaf (the expert weights' cut to
+   layer 0) saved from (2, 2) and restored onto (4, 1) and (1, 4): every
+   rank's shards, checksummed over the mesh, equal the saved leaves bit
+   for bit; b) float32 at full width cut to 2 layers, one step, qwen3-moe
+   on (2, 2) and (1, 4) and llama3-8b on (2, 2) against one process (loss
+   rtol 1e-5, gradient norm rtol 1e-4, each shard of a parameter and of
+   both moments within 1e-3 of the leaf's largest magnitude; an unchanged
+   state and a doubled gradient on one leaf must fail those bounds), rank
+   0's kernel inputs against the plain versions; d) ``launch.train.train(...,
+   mesh=)`` on (2, 2), the qwen3-moe smoke config, 8 steps against 4 and a
+   resume: losses and the final checkpoint bit for bit.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -1490,15 +1513,14 @@ def device_profile(window: str, fn, kernels: dict) -> dict:
         _sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def self_device_us(evt) -> float:
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(evt, attr):
-                return float(getattr(evt, attr))
-        return 0.0
-
-    # device rows only: the runtime's API calls (cudaLaunchKernel, ...) are host rows
-    rows = sorted(((self_device_us(e), e.key, e.count) for e in prof.key_averages()
-                   if e.device_type != torch.autograd.DeviceType.CPU), reverse=True)
+    # device rows only: the runtime's API calls (cudaLaunchKernel, ...) are host rows.
+    # The raw events are summed here: key_averages() took ~70 s on one SF-10 aggregate.
+    acc: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CPU:
+            us, count = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    rows = sorted(((us, name, count) for name, (us, count) in acc.items()), reverse=True)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     if busy_ms == 0:
         return {"window": window, "wall_ms": wall_ms, "device_time": "not measured"}
@@ -1699,6 +1721,9 @@ def run_path(path: str, kernels, fn, n: int, by_path: dict):
                      max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
 
 
+PHASE5_ONLY = ("hash",)  # held to the CPU path at 2^20 rows only (cut for time)
+
+
 def baselines_path(dev, rows, q18, rng, by_path: dict, main: dict) -> dict:
     """Phase 10: every baseline on SF-10 Q18 (phase 3's rows and cfg) and
     ``intersect_distinct`` of its order keys against ``orders``', each held
@@ -1717,6 +1742,8 @@ def baselines_path(dev, rows, q18, rng, by_path: dict, main: dict) -> dict:
         return run_path(path, kernels, fn, n, by_path)
 
     for name, (kernels, fn) in baselines().items():
+        if name in PHASE5_ONLY:
+            continue
         path = f"baseline {name}"
         (state, stats), info = run(path, kernels, lambda: fn(keys, qty, cfg, dev, None))
         if state.device.type != "cuda":
@@ -1883,7 +1910,7 @@ def feed(agg, chunks) -> None:
 
 
 def stream_phase_change(dev, by_path: dict) -> dict:
-    """Phase 11 c: both orders of the phase-change stream (67,108,864 rows)
+    """Phase 11 c: both orders of the phase-change stream (33,554,432 rows)
     through adaptive and each fixed arm at phase 3's ``ExecConfig``, the
     staged double-buffered loop; each equal to the oracle, with each
     phase's wall and the switches."""
@@ -1894,7 +1921,7 @@ def stream_phase_change(dev, by_path: dict) -> dict:
     from repro_torch.kernels import ops
 
     cfg = ExecConfig(**MAIN_CFG)
-    phases = phase_change_chunks(np.random.default_rng(3), cfg.memory_rows)
+    phases = phase_change_chunks(np.random.default_rng(3), cfg.memory_rows, 16)
     keys = np.concatenate([k for p in phases.values() for k, _ in p])
     vals = np.concatenate([v for p in phases.values() for _, v in p])
     want = oracle(keys, vals[:, 0])
@@ -2296,7 +2323,7 @@ def service_path(dev, rows, by_path: dict) -> dict:
 
 MESH_WORLD = 4
 MESH_DRIFT = dict(chunks=16, chunk_rows=1 << 20, every=4, ttl=2)  # part c
-MESH_SHARD_AGG = ("--rows", str(1 << 26), "--zipf", "1.2", "--memory-rows",
+MESH_SHARD_AGG = ("--rows", str(1 << 23), "--zipf", "1.2", "--memory-rows",
                   str(MAIN_CFG["memory_rows"]), "--batch-rows", str(MAIN_CFG["batch_rows"]))
 EXCHANGE_FIELDS = ("rows_exchanged", "exchange_quota", "exchange_max_fill", "exchange_retries")
 JOIN_DATA: dict = {}  # phase 6's orders and its one-device joins, for part b
@@ -2639,7 +2666,7 @@ def mesh_path(dev, rows, q18, by_path: dict) -> dict:
 
     # e) the launcher, its ranks spawned by itself
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for label, extra in (("2^26 rows, Zipf 1.2", MESH_SHARD_AGG + ("--check",)),
+    for label, extra in (("2^23 rows, Zipf 1.2", MESH_SHARD_AGG + ("--check",)),
                          ("--smoke", ("--smoke",))):
         cmd = [sys.executable, "-m", "repro_torch.launch.shard_agg", "--world",
                str(MESH_WORLD), "--dist-backend", "gloo", *extra]
@@ -3174,7 +3201,7 @@ def family_path(dev, by_path: dict) -> dict:
 TRAIN = dict(arch="qwen3-moe-30b-a3b", layers=4, batch=4, seq=512, steps=5, lr=5e-3)
 TRAIN_GATE_LAYERS = 2  # 18b: float32, full width, kernels against plain versions
 TOPK = dict(rounds=4, k=1 << 18)  # 18c: error-feedback rounds on 18a's embedding gradient
-DRIVER = dict(arch="qwen3-moe-30b-a3b", steps=20, cut=10)  # 18d: smoke config, --resume
+DRIVER = dict(arch="qwen3-moe-30b-a3b", steps=8, cut=4)  # 18d: smoke config, --resume
 DEEPSEEK_TRAIN = dict(steps=3, batch=4, seq=64)  # 18d: deepseek-v3's smoke config, card = CPU
 
 
@@ -3546,7 +3573,7 @@ def training_path(dev, by_path: dict) -> dict:
 
 EP_WORLD = 4
 EP_AXES = ("data", "model")
-EP_SERVE = dict(layers=24, batch=4, prompt_len=256, gen=16)  # a: mesh (1, ranks), bf16
+EP_SERVE = dict(layers=12, batch=4, prompt_len=256, gen=16)  # a: mesh (1, ranks), bf16
 EP_GATE = dict(layers=2, mesh=(2, 2), prompt_len=32, gen=4)  # b: float32, full width
 EP_GRAD = dict(batch=4, seq=16)  # c: one MoE layer, float32, on part a's mesh (E_loc 32)
 EP_RING = dict(seq=8192, d=2048, f=6144)  # d: x sharded by sequence, w replicated
@@ -3609,6 +3636,8 @@ def ep_rank(rank: int, world: int, rdv: str, run_dir: str, backend: str, parts: 
     square = sharding.make_mesh(EP_GATE["mesh"], EP_AXES, device=dev) if world == 4 else None
     ring_mesh = sharding.make_mesh((world,), ("model",), device=dev)
     pipe_mesh = sharding.make_mesh((world,), ("pod",), device=dev)
+    tall = sharding.make_mesh((world, 1), EP_AXES, device=dev)  # phase 20c
+    shard_meshes = {(2, 2): square, (1, world): serve_mesh, (world, 1): tall}
     whole = serve_mesh.sub(EP_AXES)
     d = Path(run_dir)
     tag = f"{backend}{world}"
@@ -3628,39 +3657,41 @@ def ep_rank(rank: int, world: int, rdv: str, run_dir: str, backend: str, parts: 
         gc.collect()
         torch.cuda.empty_cache()
 
-    # a) qwen3-moe at full width, cut to 24 of 48 layers, bf16, mesh (1, ranks)
+    # a) qwen3-moe at full width, cut to 12 of 48 layers, bf16, mesh (1, ranks)
     s, gen, b = EP_SERVE["prompt_len"], EP_SERVE["gen"], EP_SERVE["batch"]
     prompts = torch.randint(0, cfg.vocab, (b, s), generator=host)
     cfg_a = dataclasses.replace(cfg, n_layers=EP_SERVE["layers"])
-    MP.set_current_mesh(serve_mesh)
-    t0 = time.perf_counter()
-    model = M.init(cfg_a, seeded(SEED), mesh=serve_mesh)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    if "a" in parts:
+        MP.set_current_mesh(serve_mesh)
+        t0 = time.perf_counter()
+        model = M.init(cfg_a, seeded(SEED), mesh=serve_mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
 
-    def part_a():
-        out = generate(model, cfg_a, rows(prompts, serve_mesh), gen=gen,
-                       max_len=cache_len(cfg_a, s + gen), backend="cuda", keep_logits=True)
-        return out, dict(prefill_s=out.t_prefill, decode_ms_per_token=out.t_decode * 1e3)
+        def part_a():
+            out = generate(model, cfg_a, rows(prompts, serve_mesh), gen=gen,
+                           max_len=cache_len(cfg_a, s + gen), backend="cuda", keep_logits=True)
+            return out, dict(prefill_s=out.t_prefill, decode_ms_per_token=out.t_decode * 1e3)
 
-    path = f"ep serve {tag}"
-    out = _mesh_part(report, path, rank, whole, EP_KERNELS, part_a)
-    if not np.isfinite(out.logits).all():
-        raise SystemExit(f"FAIL {path} rank {rank}: non-finite logits")
-    launches = report[path]["launches"]
-    want = {"grouped_matmul": 3 * cfg_a.n_layers * gen, "grouped_matmul_simt": 0,
-            "argsort": cfg_a.n_layers * gen}
-    if any(launches[k] != v for k, v in want.items()):
-        raise SystemExit(f"FAIL {path} rank {rank}: launches {launches}, expected {want}")
-    report[path].update(
-        tokens=out.tokens.tolist(), init_s=init_s, layers=cfg_a.n_layers,
-        weight_bytes=sum(t.numel() * t.element_size() for t in model.parameters()),
-        experts_held=int(model.layers[0].moe.wi.shape[0]),
-        collectives_per_step={k: v / gen for k, v in report[path]["collectives"].items()})
-    if rank == 0:
-        log(f"phase 19a rank 0: {json.dumps({k: v for k, v in report[path].items() if k != 'tokens'})}")
-    del model, out
-    free()
+        path = f"ep serve {tag}"
+        out = _mesh_part(report, path, rank, whole, EP_KERNELS, part_a)
+        if not np.isfinite(out.logits).all():
+            raise SystemExit(f"FAIL {path} rank {rank}: non-finite logits")
+        launches = report[path]["launches"]
+        want = {"grouped_matmul": 3 * cfg_a.n_layers * gen, "grouped_matmul_simt": 0,
+                "argsort": cfg_a.n_layers * gen}
+        if any(launches[k] != v for k, v in want.items()):
+            raise SystemExit(f"FAIL {path} rank {rank}: launches {launches}, expected {want}")
+        report[path].update(
+            tokens=out.tokens.tolist(), init_s=init_s, layers=cfg_a.n_layers,
+            weight_bytes=sum(t.numel() * t.element_size() for t in model.parameters()),
+            experts_held=int(model.layers[0].moe.wi.shape[0]),
+            collectives_per_step={k: v / gen for k, v in report[path]["collectives"].items()})
+        if rank == 0:
+            shown = {k: v for k, v in report[path].items() if k != "tokens"}
+            log(f"phase 19a rank 0: {json.dumps(shown)}")
+        del model, out
+        free()
 
     if "b" in parts:
         # b) float32, 2 layers at full width on (2, 2): the kernels against the
@@ -3824,11 +3855,15 @@ def ep_rank(rank: int, world: int, rdv: str, run_dir: str, backend: str, parts: 
             max_abs_grad_diff=float((mine.grad - g_want).abs().max()))
         del params, x, ct, mine, y, h, seq_p
         free()
+    if "f" in parts:  # phase 20 on the same ranks
+        shard_path_rank(rank, shard_meshes, dev, report)
     MP.set_current_mesh(None)
     if rank == 0:  # rank 0's captured inputs against the plain versions, the serve's timed
         before = dict(MAX_ERR)
         for path in list(CAPTURED):
-            settle(path, ("grouped_matmul",) if path.startswith("ep serve") else ())
+            timed = {"sharded train": ("grouped_matmul", "argsort")}.get(
+                path, ("grouped_matmul",) if path.startswith("ep serve") else ())
+            settle(path, timed)
         report["max_err"] = {k: v for k, v in MAX_ERR.items() if v != before.get(k)}
         report["checked_shapes"] = {
             p: {k: [list(key) + [calls] for key, (calls, _) in sigs.items()]
@@ -3877,7 +3912,7 @@ def ep_path(by_path: dict) -> dict:
             p.unlink()
     run_dir.mkdir(parents=True, exist_ok=True)
     out: dict = {}
-    reports = _spawn_ep(run_dir, EP_WORLD, "gloo", "bcde")
+    reports = _spawn_ep(run_dir, EP_WORLD, "gloo", "abcdef")
     out["a"] = _ep_serve_summary(reports)
     log(f"phase 19a, ep serve ok: {json.dumps(out['a'])}")
     for part, path in (("b", "ep fp32 gate"), ("c", "ep grad"), ("d", "ep ring"),
@@ -3887,7 +3922,11 @@ def ep_path(by_path: dict) -> dict:
             out[part]["no_drop_max_abs_logit_diff"] = reports[0][path][
                 "no_drop_max_abs_logit_diff"]
         log(f"phase 19{part}, {path} ok: {json.dumps(out[part])}")
-    for path in ("ep serve gloo4", "ep fp32 gate", "ep grad"):
+    out["phase 20"] = _shard_summary(reports)
+    for part in "abcd":
+        log(f"phase 20{part}, {PHASE20[part]} ok: {json.dumps(out['phase 20'][part])}")
+    log(f"phase 20: wall by part and rank {json.dumps(out['phase 20']['wall_s'])}")
+    for path in ("ep serve gloo4", "ep fp32 gate", "ep grad", "sharded train"):
         by_path[path] = {k: sum(rep[path]["launches"][k] for rep in reports)
                          for k in reports[0][path]["launches"]}
     for name, err in reports[0].get("max_err", {}).items():
@@ -3906,6 +3945,609 @@ def ep_path(by_path: dict) -> dict:
         out["a_nccl"] = "not run: one card (NCCL needs a card a rank)"
         log("phase 19a: NCCL unverified here: one card")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: parameters, moments and batches sharded by the logical-axis rules
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN = dict(layers=4, mesh=(2, 2), batch=4, seq=512, steps=5, lr=5e-3)  # a: bf16
+SHARD_GATE = dict(layers=2, batch=4, seq=64, lr=5e-3)  # b: float32, (2, 2) and (1, 4)
+SHARD_DENSE = dict(arch="llama3-8b", layers=2)  # b: full width, no kernel, on (2, 2)
+SHARD_DRIVER = dict(arch="qwen3-moe-30b-a3b", steps=8, cut=4, batch=8, seq=64)  # d
+PHASE20 = {"a": "sharded train", "b": "sharded fp32 gate", "c": "elastic restore",
+           "d": "sharded train driver"}
+
+
+def _shard_gmm_flops():
+    """Tap the grouped matmul's launch function: ``2 * rows * K * N`` of
+    every product (forward, recompute and the backward's), which
+    ``FlopCounterMode`` does not see (the kernel is launched outside
+    PyTorch's operators)."""
+    from repro_torch.kernels import grouped_matmul
+
+    total, orig = [0.0], grouped_matmul.grouped_matmul_launch
+
+    def tap(x, w, **kw):
+        total[0] += 2.0 * x.shape[0] * w.shape[1] * w.shape[2]
+        return orig(x, w, **kw)
+
+    return total, orig, tap
+
+
+def _at_rest(cfg, mesh) -> tuple[int, int]:
+    """Bytes a rank holds at rest by the spec arithmetic: each leaf's shard
+    (``sharding.shard_shape``, padding included) in its dtype, and AdamW's
+    two float32 moments of each."""
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.launch import steps as ST
+
+    leaves, _ = ST.abstract_init(cfg)
+    specs = ST.state_shardings(cfg, mesh, "adamw").params
+    shapes = {k: tuple(t.shape) for k, t in leaves.items()}
+    params = FS.shard_bytes(shapes, specs, mesh, {k: t.element_size() for k, t in leaves.items()})
+    return params, 2 * FS.shard_bytes(shapes, specs, mesh, 4)
+
+
+def shard_train(rank: int, mesh, dev, report: dict):
+    """20a: qwen3-moe in bfloat16 at full width, 4 layers, every leaf and
+    moment sharded on (2, 2), ``sorted_ep`` through the kernels, AdamW,
+    5 steps of a global 4 x 512 batch.  Returns the state (20c saves it)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import grouped_matmul, ops
+    from repro_torch.launch import roofline as RF
+    from repro_torch.launch import steps as ST
+
+    p = SHARD_TRAIN
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=p["layers"], mesh_axes=EP_AXES)
+    step, init_state, opt = ST.make_train_step(cfg, lr=p["lr"], backend="cuda", mesh=mesh)
+    if opt != "adamw" or not cfg.remat or cfg.moe.dispatch != "sorted_ep":
+        raise SystemExit(f"FAIL sharded train: optimizer {opt}, remat {cfg.remat}, "
+                         f"dispatch {cfg.moe.dispatch}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in state.params.parameters())
+    moment_bytes = sum(t.numel() * t.element_size() for t in (*state.opt_m.values(),
+                                                              *state.opt_v.values()))
+    want = _at_rest(cfg, mesh)
+    if (param_bytes, moment_bytes) != want:
+        raise SystemExit(f"FAIL sharded train rank {rank}: bytes at rest "
+                         f"{(param_bytes, moment_bytes)}, the specs' {want}")
+    batch = ST.local_batch(train_batch(cfg, p["batch"], p["seq"], dev), mesh)
+    flops_gmm = [0.0]
+
+    def run():
+        losses, norms, step_ms, st = [], [], [], state
+        total, orig, tap = _shard_gmm_flops()  # over capture's tap, which stays
+        grouped_matmul.grouped_matmul_launch = tap
+        try:
+            (st, met), flops = RF.count_flops(lambda: step(st, batch))
+        finally:
+            grouped_matmul.grouped_matmul_launch = orig
+        flops_gmm[0] = total[0]
+        first = dict(sharding.COLLECTIVES)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        for _ in range(p["steps"] - 1):
+            t1 = time.perf_counter()
+            st, met = step(st, batch)
+            losses.append(float(met["loss"]))  # a sync: the step's end
+            norms.append(float(met["grad_norm"]))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        return (st, losses, norms, step_ms, flops, first), {}
+
+    (state, losses, norms, step_ms, flops, first) = _mesh_part(
+        report, "sharded train", rank, mesh.sub(EP_AXES),
+        ("argsort", "grouped_matmul", "grouped_matmul_bwd"), run)
+    info = report["sharded train"]
+    launches = info["launches"]
+    moe = cfg.n_layers * p["steps"]
+    if launches["grouped_matmul_simt"] or launches["argsort"] != 2 * moe:
+        raise SystemExit(f"FAIL sharded train rank {rank}: launches {launches} (argsort "
+                         f"{2 * moe}, every bfloat16 product on the tensor cores)")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL sharded train rank {rank}: losses {losses}, norms {norms}")
+    per_step = {k: (sharding.COLLECTIVES[k] - first[k]) / (p["steps"] - 1)
+                for k in sharding.COLLECTIVES}
+    coll = RF.collective_bytes_of(per_step)
+    state_bytes = 2 * param_bytes + moment_bytes  # parameters, gradients, moments
+    # the least HBM traffic of a step: the state read and written once by the
+    # update, each gathered weight written once and read once where it is used
+    hbm = 2 * state_bytes + 2 * per_step["all_gather_bytes"]
+    roof = RF.from_measured(flops + flops_gmm[0], hbm, sum(coll.values()), 1,
+                            coll_breakdown=coll)
+    info.update(losses=losses, grad_norms=norms, step_ms=step_ms,
+                ms_per_step_after_first=float(np.mean(step_ms)), init_s=init_s,
+                param_bytes_at_rest=param_bytes, moment_bytes_at_rest=moment_bytes,
+                spec_bytes_at_rest=list(want), collectives_per_step=per_step,
+                flops_per_step=flops + flops_gmm[0], grouped_matmul_flops=flops_gmm[0],
+                roofline=roof.as_dict(), roofline_lower_bound_ms=roof.step_time_lower_bound * 1e3,
+                experts_held=int(state.params.layers[0].moe.wi.shape[0]),
+                param_count=sum(int(np.prod(s)) for s in
+                                (t.shape for t in ST.abstract_init(cfg)[0].values())))
+    return state
+
+
+def _one_process_step(cfg, dev, batch: dict, aux_weight: float, halves: int):
+    """One process's train step (the kernels) from the seed's draw: its
+    loss, gradient norm and the load-balance term of each of ``halves``
+    data shards of the batch at the drawn weights (what ``sorted_ep``
+    averages on that many data ranks), and the updated parameters and
+    moments, left on the card: ``{"params/<name>" | "opt_m/<leaf>" |
+    "opt_v/<leaf>": tensor}``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import moe_parallel as MP
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as M
+
+    plain = dataclasses.replace(cfg, mesh_axes=None)
+    if plain.moe is not None:
+        plain = dataclasses.replace(plain, moe=dataclasses.replace(plain.moe, dispatch="sorted"))
+    MP.set_current_mesh(None)
+    step, init_state, _ = ST.make_train_step(plain, lr=SHARD_GATE["lr"], backend="cuda",
+                                             aux_weight=aux_weight)
+    state = init_state(torch.Generator(device=dev).manual_seed(SEED))
+    n = batch["tokens"].shape[0] // halves
+    with torch.no_grad():
+        aux = [float(M.forward(state.params, plain, batch["tokens"][i * n:(i + 1) * n])[2])
+               for i in range(halves)]
+    state, met = step(state, batch)
+    ref = {f"params/{k}": t.detach() for k, t in state.params.named_parameters()}
+    ref.update({f"opt_{f}/{k}": t for f in "mv" for k, t in getattr(state, f"opt_{f}").items()})
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                aux=float(np.mean(aux))), ref
+
+
+def _mesh_step(cfg, mesh, dev, batch, rank: int, aux_weight: float):
+    """One sharded step with the kernels from the seed's draw (rank 0's
+    kernel inputs captured): its metrics, launches, and every leaf of the
+    state as ``{"params/<name>" | "opt_m/<leaf>" | "opt_v/<leaf>": (shard,
+    spec, global shape)}``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+
+    step, init_state, _ = ST.make_train_step(cfg, lr=SHARD_GATE["lr"], backend="cuda",
+                                             mesh=mesh, aux_weight=aux_weight)
+    state = init_state(torch.Generator(device=dev).manual_seed(SEED))
+    ops.reset_launch_counts()
+    with capture("sharded fp32 gate") if rank == 0 else contextlib.nullcontext():
+        state, met = step(state, ST.local_batch(batch, mesh))
+    layout = state.params.layout
+    leaves = {f"params/{n}": (t.detach(), layout.specs[n], layout.shapes[n])
+              for n, t in state.params.named_parameters()}
+    for key, place in ST.moment_placements(cfg, mesh, "adamw").items():
+        f, k = key.split("/", 1)
+        leaves[key] = (getattr(state, f)[k], place.spec, place.shape)
+    metrics = {k: float(met[k]) for k in ("loss", "grad_norm", "aux")}
+    return metrics, dict(ops.LAUNCHES), leaves
+
+
+def rank0_card_buffer(rank: int, elems: int, dev):
+    """A float32 buffer of ``elems`` on the card, rank 0's, that every rank
+    maps (the ranks share the card): rank 0 broadcasts its CUDA IPC handle
+    (``torch.multiprocessing``'s pickling) once.  CUDA IPC counts one
+    receiver a send, so rank 0 never gets the buffer back: it is made once
+    and refilled."""
+    import torch
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    buf = torch.empty(elems, dtype=torch.float32, device=dev) if rank == 0 else None
+    box = [None if buf is None else reduce_tensor(buf)]
+    torch.distributed.broadcast_object_list(box, src=0)
+    if buf is None:
+        rebuild, args = box[0]
+        buf = rebuild(*args)
+    return buf
+
+
+SHARE_ELEMS = 1 << 30  # 20b: rank 0's float32 buffer (4 GiB) that the other ranks map
+
+
+def gate_against_rank0(leaves: dict, ref, buf, mesh, whole) -> tuple[dict, dict, dict]:
+    """20b's comparison of every rank's ``leaves`` with rank 0's whole
+    leaves ``ref`` (None on the other ranks), which reach the ranks through
+    ``buf`` (:func:`rank0_card_buffer`): rank 0 fills it with a group of
+    leaves, every rank compares its shards of them, and so on.  Returns the shares of the bound (:func:`gate_shares`) of the leaves, of
+    an unchanged state's moments (zero), and of the moments of
+    ``GATE_MUTANT`` that twice its gradient gives."""
+    import torch
+
+    from repro_torch.distributed import sharding
+
+    plan = None
+    if ref is not None:
+        plan, group, at = [], [], 0
+        for key, t in ref.items():
+            if t.numel() > buf.numel():
+                raise SystemExit(f"FAIL sharded fp32 gate: {key} outgrows the shared buffer")
+            if at + t.numel() > buf.numel():
+                plan, group, at = plan + [group], [], 0
+            group.append((key, at, tuple(t.shape)))
+            at += t.numel()
+        plan.append(group)
+    box = [plan]
+    torch.distributed.broadcast_object_list(box, src=0)
+    shares, unchanged, doubled = {}, {}, {}
+    mutants = {GATE_MUTANT.format(f) for f in "mv"}
+    for group in box[0]:
+        if ref is not None:
+            for key, at, _ in group:
+                buf[at:at + ref[key].numel()].copy_(ref[key].reshape(-1))
+            torch.cuda.synchronize()
+        sharding.barrier(whole)
+        view = {key: buf[at:at + math.prod(shape)].view(shape) for key, at, shape in group}
+        mine = {key: leaves[key] for key in view}
+        shares.update(gate_shares(mine, view, mesh))
+        unchanged.update(gate_shares({k: (torch.zeros_like(t), sp, shp) for k, (t, sp, shp)
+                                      in mine.items() if not k.startswith("params")}, view, mesh))
+        doubled.update(gate_shares({k: (t * (2.0 if k.startswith("opt_m") else 4.0), sp, shp)
+                                    for k, (t, sp, shp) in mine.items() if k in mutants},
+                                   view, mesh))
+        del view
+        sharding.barrier(whole)  # every rank has read the group
+    return shares, unchanged, doubled
+
+
+def gate_shares(leaves: dict, ref: dict, mesh, tol: float = 1e-3) -> dict:
+    """For each leaf ``{key: (shard, spec, global shape)}``: the largest
+    difference between this rank's shard and its block of the reference's
+    whole leaf ``ref[key]``, as a share of the bound, ``tol`` times the
+    reference leaf's largest magnitude (above 1: outside; NaN stays NaN)."""
+    from repro_torch.distributed import sharding
+
+    out = {}
+    for key, (t, spec, shape) in leaves.items():
+        whole = ref[key]
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        valid = sharding.valid_slices(shape, spec, mesh)
+        want = sharding.shard_of(whole, spec, mesh)[valid].float()
+        got = t[valid].to(want.device).float()
+        scale = tol * max(float(whole.abs().max()), 1e-12)
+        out[key] = float((got - want).abs().max()) / scale if got.numel() else 0.0
+    return out
+
+
+def _worst(shares: dict) -> dict:
+    """The largest share of each kind of leaf (parameters, m, v)."""
+    return {kind: max(v for k, v in shares.items() if k.startswith(kind))
+            for kind in ("params", "opt_m", "opt_v")}
+
+
+# a leaf replicated over "model": its cotangent counted once a rank would double it
+GATE_MUTANT = "opt_{}/layers/ln1/scale"
+
+
+def shard_gate(rank: int, meshes: dict, dev, report: dict) -> None:
+    """20b: float32 at full width cut to 2 layers, one step from the seed's
+    draw: qwen3-moe (``sorted_ep``, capacity factor E/k: no row drops) on
+    (2, 2) and (1, 4), llama3-8b on (2, 2), each against one process (rank
+    0, the kernels).  The mesh's loss within rtol 1e-5, its gradient norm
+    within rtol 1e-4, and every rank's shard of every parameter and of both
+    AdamW moments within 1e-3 of the one-process leaf's largest magnitude
+    (the moments hold the clipped gradient: the first update, at the warmup's
+    lr, is smaller than that bound).  On (2, 2) qwen3-moe runs without the
+    load-balance term (``sorted_ep`` takes it per data shard, one process
+    over the whole batch); its value is held to the mean of one process's
+    over the two halves of the batch, and (1, 4) holds the term's gradient.
+    The mesh step runs first and its state waits on the host; rank 0 then
+    takes the one-process step and passes its leaves to the other ranks
+    through a buffer on the card that they map (CUDA IPC).
+    Two states that must fail the same bounds are checked to fail: the
+    moments of an unchanged state (zero), and those that twice the gradient
+    of one leaf, replicated over ``"model"``, gives.  Rank 0's kernel inputs
+    are captured and held against the plain versions (``settle``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+
+    g = SHARD_GATE
+    whole = meshes[(2, 2)].sub(EP_AXES)
+    base = get_config(TRAIN["arch"])
+    moe = dataclasses.replace(base.moe, capacity_factor=base.moe.num_experts / base.moe.top_k)
+    runs = {"qwen3-moe (2, 2)": (dataclasses.replace(base, moe=moe), (2, 2), 0.0),
+            "qwen3-moe (1, 4)": (dataclasses.replace(base, moe=moe), (1, 4), 0.01),
+            "llama3-8b (2, 2)": (get_config(SHARD_DENSE["arch"]), (2, 2), 0.01)}
+    buf = None
+    out = {}
+    for name, (cfg, shape, aux_weight) in runs.items():
+        cfg = dataclasses.replace(cfg, n_layers=g["layers"], dtype="float32", mesh_axes=EP_AXES)
+        batch = train_batch(cfg, g["batch"], g["seq"], dev)
+        mesh = meshes[shape]
+        met, launches, leaves = _mesh_step(cfg, mesh, dev, batch, rank, aux_weight)
+        res: dict = dict(metrics=met, launches=launches)
+        if cfg.moe is not None:
+            require_launches(f"sharded fp32 gate {name}", launches,
+                             ("argsort", "grouped_matmul_simt", "grouped_matmul_bwd"))
+        # the mesh's state waits on the host while rank 0 takes the one-process step
+        leaves = {k: (t.cpu(), s, shp) for k, (t, s, shp) in leaves.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharding.barrier(whole)
+        if buf is None:
+            buf = rank0_card_buffer(rank, SHARE_ELEMS, dev)
+        one, ref = (None, None)
+        if rank == 0:
+            one, ref = _one_process_step(cfg, dev, batch, aux_weight, shape[0])
+        box = [one]
+        torch.distributed.broadcast_object_list(box, src=0)
+        one = box[0]
+        shares, unchanged, doubled = gate_against_rank0(leaves, ref, buf, mesh, whole)
+        res["worst_share_of_bound"] = _worst(shares)
+        worst = max(shares, key=lambda k: -1.0 if shares[k] != shares[k] else shares[k])
+        if not all(v <= 1.0 for v in shares.values()):
+            raise SystemExit(f"FAIL sharded fp32 gate {name} rank {rank}: {worst} differs by "
+                             f"{shares[worst]} of its bound (1e-3 of the leaf's magnitude)")
+        res["unchanged_state_fails"] = sum(v > 1.0 for v in unchanged.values())
+        res["doubled_gradient_share"] = max(doubled.values())
+        if not res["unchanged_state_fails"] or not res["doubled_gradient_share"] > 1.0:
+            raise SystemExit(f"FAIL sharded fp32 gate {name} rank {rank}: the bounds pass a "
+                             f"wrong state ({res['unchanged_state_fails']} leaves of an "
+                             f"unchanged one fail; a doubled gradient on {GATE_MUTANT} gives "
+                             f"{res['doubled_gradient_share']} of its bound)")
+        if rank == 0:
+            res["one_process"] = one
+            for key, rtol in (("loss", 1e-5), ("grad_norm", 1e-4), ("aux", 1e-5)):
+                if not np.isclose(met[key], one[key], rtol=rtol, atol=0):
+                    raise SystemExit(f"FAIL sharded fp32 gate {name}: mesh {key} {met[key]}, "
+                                     f"one process {one[key]} (rtol {rtol})")
+        out[name] = res
+        del leaves, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["card_free_bytes_after"] = torch.cuda.mem_get_info()[0]
+        sharding.barrier(whole)
+        if rank == 0:
+            log(f"phase 20b {name}: {json.dumps(res)}")
+    report["sharded fp32 gate"] = out
+
+
+def leaf_checksum(t, spec, mesh, shape):
+    """This rank's part of an order-free checksum of a leaf: the sum, in
+    wrapping int64, of each element's bits times a hash of its global
+    index, over the rows its shard holds (one copy of each block counts).
+    Summed over the ranks it is the leaf's, whatever mesh holds it."""
+    import torch
+
+    from repro_torch.distributed import sharding
+
+    named = set(sharding.spec_axes(spec))
+    if any(mesh.coords[a] for a in mesh.axis_names if a not in named):
+        return torch.zeros((), dtype=torch.int64, device=t.device)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    valid = sharding.valid_slices(shape, spec, mesh)
+    block = t[valid].contiguous()
+    gidx = torch.zeros(block.shape, dtype=torch.int64, device=t.device)
+    stride = 1
+    for dim in reversed(range(len(shape))):
+        blk = -(-int(shape[dim]) // sharding._ways(mesh, spec[dim]))
+        lo = sharding._block(mesh, spec[dim]) * blk
+        pos = torch.arange(block.shape[dim], device=t.device, dtype=torch.int64) + lo
+        gidx += pos.view([-1 if i == dim else 1 for i in range(len(shape))]) * stride
+        stride *= int(shape[dim])
+    bits = block.view(torch.int16 if block.element_size() == 2 else torch.int32).to(torch.int64)
+    return (bits * (gidx * 2654435761 + 97)).sum()
+
+
+def _checksums(tree_specs: dict, mesh) -> "object":
+    """The checksums of leaves ``{name: (tensor, spec, shape)}``, summed over
+    ``mesh``'s ranks (one all-reduce)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+
+    parts = torch.stack([leaf_checksum(t, s, mesh, shp) for t, s, shp in tree_specs.values()])
+    return sharding.all_reduce(mesh.sub(mesh.axis_names), parts, "sum").cpu().tolist()
+
+
+EXPERT_LEAVES = ("layers/moe/wg", "layers/moe/wi", "layers/moe/wo")  # 20c: their layer 0's moments
+
+
+def _restored_moments(cfg, mesh, state=None) -> tuple[dict, dict]:
+    """20c's moments and their placements on ``mesh``: every AdamW moment
+    leaf, the expert weights' cut to layer 0 (their other layers, 14.5 GB,
+    would take ~40 s more through gloo); the moments are ``state``'s shards,
+    or zeros of their shapes to restore into."""
+    import torch
+
+    from repro_torch.checkpoint.manager import Placement
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps as ST
+
+    placed, moments = {}, {}
+    for key, p in ST.moment_placements(cfg, mesh, "adamw").items():
+        f, k = key.split("/", 1)
+        cut = k in EXPERT_LEAVES
+        placed[key] = Placement(p.spec, (1, *p.shape[1:]) if cut else p.shape)
+        if state is None:
+            moments[key] = torch.zeros(sharding.shard_shape(placed[key].shape, p.spec, mesh),
+                                       device=mesh.device)
+        else:
+            t = getattr(state, f)[k]
+            moments[key] = t[:1] if cut else t
+    return moments, placed
+
+
+def shard_restore(rank: int, state, meshes: dict, dev, report: dict) -> None:
+    """20c: 20a's parameters and AdamW moments (the expert weights' for
+    layer 0) saved from (2, 2) (gathered on every rank, rank 0 writes the
+    one-process format), then restored on (4, 1) and (1, 4): each rank's
+    shards, checksummed over the mesh, equal the saved leaves bit for bit."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models import model as M
+
+    src_mesh = meshes[(2, 2)]
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=SHARD_TRAIN["layers"],
+                              mesh_axes=EP_AXES)
+    root = ROOT / "build" / "shard_ckpt"
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    sharding.barrier(src_mesh.sub(EP_AXES))
+
+    def sums(model, moments, mesh, placed):
+        leaves = {f"params/{n}": (t.detach(), model.layout.specs[n], model.layout.shapes[n])
+                  for n, t in model.named_parameters()}
+        for key, t in moments.items():
+            leaves[key] = (t, placed[key].spec, placed[key].shape)
+        return _checksums(leaves, mesh)
+
+    def tree(model, moments):
+        return {"params": model, **{f: {k.split("/", 1)[1]: t for k, t in moments.items()
+                                        if k.startswith(f + "/")} for f in ("opt_m", "opt_v")}}
+
+    moments, placed = _restored_moments(cfg, src_mesh, state)
+    want = sums(state.params, moments, src_mesh, placed)
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(str(root))
+    mgr.save(tree(state.params, moments), SHARD_TRAIN["steps"], mesh=src_mesh, specs=placed)
+    sharding.barrier(src_mesh.sub(EP_AXES))
+    save_s = time.perf_counter() - t0
+    out = {"leaves": len(want), "save_s": save_s}
+    if rank == 0:
+        out["bytes_saved"] = (root / f"step_{SHARD_TRAIN['steps']:08d}" / "shard_p0.npz"
+                              ).stat().st_size
+    del moments
+    for shape in ((4, 1), (1, 4)):
+        mesh = meshes[shape]
+        t0 = time.perf_counter()
+        target = M.uninitialized(cfg, device=dev, mesh=mesh, sharded=True)
+        zeros, p = _restored_moments(cfg, mesh)
+        got, manifest = mgr.restore(tree(target, zeros), mesh=mesh, specs=p)
+        restore_s = time.perf_counter() - t0
+        moments = {f"{f}/{k}": t for f in ("opt_m", "opt_v") for k, t in got[f].items()}
+        have = sums(got["params"], moments, mesh, p)
+        if have != want or manifest["step"] != SHARD_TRAIN["steps"]:
+            bad = [i for i, (a, b) in enumerate(zip(have, want)) if a != b]
+            raise SystemExit(f"FAIL sharded restore {shape} rank {rank}: {len(bad)} leaves "
+                             f"differ from the saved ones")
+        out[str(shape)] = dict(restore_s=restore_s, experts_held=int(
+            target.layers[0].moe.wi.shape[0]), param_bytes_at_rest=sum(
+            t.numel() * t.element_size() for t in target.parameters()))
+        del got, target, zeros, moments
+        gc.collect()
+        torch.cuda.empty_cache()
+    sharding.barrier(src_mesh.sub(EP_AXES))
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    report["sharded restore"] = out
+
+
+def shard_driver(rank: int, mesh, dev, report: dict) -> None:
+    """20d: ``launch.train.train(..., mesh=)`` on (2, 2) with the qwen3-moe
+    smoke config, 8 steps against 4 and a ``resume`` to 8: losses and the
+    final checkpoint bit for bit."""
+    import shutil
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as TR
+
+    d = SHARD_DRIVER
+    root = ROOT / "build" / "shard_driver"
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    sharding.barrier(mesh.sub(EP_AXES))
+    kw = dict(smoke=True, batch=d["batch"], seq=d["seq"], log_every=1000, device=dev,
+              mesh=mesh)
+    t0 = time.perf_counter()
+    full = TR.train(d["arch"], steps=d["steps"], ckpt_dir=str(root / "full"), **kw)
+    first = TR.train(d["arch"], steps=d["cut"], ckpt_dir=str(root / "cut"), save_every=d["cut"],
+                     **kw)
+    rest = TR.train(d["arch"], steps=d["steps"], ckpt_dir=str(root / "cut"), resume=True,
+                    save_every=1000, **kw)
+    if first + rest != full:
+        raise SystemExit(f"FAIL sharded driver rank {rank}: {first} + {rest} != {full}")
+    info = dict(arch=d["arch"], mesh=list(mesh.shape.values()), steps=d["steps"], cut=d["cut"],
+                losses=full, wall_s=time.perf_counter() - t0)
+    if rank == 0:
+        last = f"step_{d['steps']:08d}"
+        with np.load(root / "full" / last / "shard_p0.npz") as a, \
+                np.load(root / "cut" / last / "shard_p0.npz") as b:
+            if sorted(a.files) != sorted(b.files) or not all(np.array_equal(a[k], b[k])
+                                                             for k in a.files):
+                raise SystemExit("FAIL sharded driver: the resumed run's checkpoint differs")
+            info["checkpoint_leaves"] = len(a.files)
+        shutil.rmtree(root, ignore_errors=True)
+    report["sharded driver"] = info
+
+
+def shard_path_rank(rank: int, meshes: dict, dev, report: dict) -> None:
+    """Phase 20 on this rank: parts a-d, each rank's wall by part."""
+    import torch
+
+    from repro_torch.distributed import moe_parallel as MP
+
+    walls = {}
+
+    def done(part: str, t0: float, key: str) -> None:
+        walls[part] = time.perf_counter() - t0
+        if rank == 0:
+            log(f"phase 20{part} rank 0, {walls[part]:.1f} s: {json.dumps(report[key])}")
+
+    t0 = time.perf_counter()
+    state = shard_train(rank, meshes[SHARD_TRAIN["mesh"]], dev, report)
+    done("a", t0, "sharded train")
+    t0 = time.perf_counter()
+    shard_restore(rank, state, meshes, dev, report)
+    done("c", t0, "sharded restore")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shard_gate(rank, meshes, dev, report)
+    done("b", t0, "sharded fp32 gate")
+    t0 = time.perf_counter()
+    shard_driver(rank, meshes[(2, 2)], dev, report)
+    done("d", t0, "sharded driver")
+    MP.set_current_mesh(None)
+    report["phase 20 wall_s"] = walls
+
+
+def _shard_summary(reports: list[dict]) -> dict:
+    """Phase 20's record from the ranks' reports."""
+    _same_on_ranks("sharded train losses", [rep["sharded train"]["losses"] for rep in reports])
+    keys = ("wall_s", "step_ms", "ms_per_step_after_first", "max_memory_allocated",
+            "param_bytes_at_rest", "moment_bytes_at_rest", "spec_bytes_at_rest",
+            "collectives_per_step", "launches", "host_syncs", "init_s", "experts_held",
+            "flops_per_step", "grouped_matmul_flops", "roofline", "roofline_lower_bound_ms")
+    a = reports[0]["sharded train"]
+    return dict(
+        a=dict(arch=TRAIN["arch"], layers=SHARD_TRAIN["layers"], dtype="bfloat16",
+               mesh=list(SHARD_TRAIN["mesh"]), batch=SHARD_TRAIN["batch"],
+               seq=SHARD_TRAIN["seq"], steps=SHARD_TRAIN["steps"], lr=SHARD_TRAIN["lr"],
+               param_count=a["param_count"], losses=a["losses"], grad_norms=a["grad_norms"],
+               ranks=[{k: rep["sharded train"][k] for k in keys} for rep in reports]),
+        b=dict(rank0=reports[0]["sharded fp32 gate"],
+               worst_share_of_bound=[{n: r["worst_share_of_bound"] for n, r in
+                                      rep["sharded fp32 gate"].items()} for rep in reports]),
+        c=[rep["sharded restore"] for rep in reports],
+        d=reports[0]["sharded driver"],
+        wall_s=[rep["phase 20 wall_s"] for rep in reports])
 
 
 def kernel_records(by_path: dict) -> list[dict]:

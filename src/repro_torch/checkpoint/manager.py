@@ -18,22 +18,49 @@ A tree is nested dicts, tuples, lists and named tuples whose leaves are
 tensors, NumPy arrays or numbers; a model (``nn.Module``) stands for its
 named parameters.  ``restore(like, device=)`` rebuilds ``like``'s
 structure: a model's parameters are copied into it in place, other leaves
-come back as tensors on ``device`` (numbers as numbers).
+come back as tensors on ``device`` (by default the device of ``like``'s
+tensors, else ``"cuda"``; without a card that raises: the port never
+moves to the CPU unless asked; numbers as numbers).
+
+On a mesh of ranks the checkpoint is the one-process format, whatever mesh
+wrote it (the reference's elastic restore).  A sharded model (its
+``layout``) and the leaves named in ``specs`` (flattened paths, each a
+spec or a :class:`Placement`) are shards: ``save(..., mesh=, specs=)``
+gathers each leaf on every rank (every rank calls it; the gathers run
+before ``save`` returns, since a gloo collective issued from the writer
+thread beside the training's would deadlock), then the mesh's rank 0 alone
+writes, on the writer thread if asked.  ``restore(like, mesh=, specs=)``
+reads the whole leaves on every rank and keeps each rank's shard
+(``sharding.shard_of``), on a mesh that may differ from the one that saved.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
+import struct
 import threading
 import time
-from typing import Any, Mapping
+import zipfile
+from typing import Any, Mapping, NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.types import resolve_device
+from repro_torch.distributed import sharding as SH
+
 _SEP = "/"
+
+
+class Placement(NamedTuple):
+    """A sharded leaf: its ``spec`` and its global ``shape`` (needed to
+    drop an uneven shard's padding when the leaf is gathered)."""
+
+    spec: tuple
+    shape: tuple
 
 
 def _children(node):
@@ -74,12 +101,81 @@ def to_numpy(leaf) -> tuple[np.ndarray, str]:
 
 def from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
     if dtype == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))
 
 
-def _host(tree) -> dict[str, tuple[np.ndarray, str]]:
-    return {k: to_numpy(v) for k, v in _flatten(tree).items()}
+def _stored_arrays(path: str) -> dict:
+    """The arrays of an ``.npz`` written by :func:`_write`, by name, each a
+    read-only ``np.memmap`` of its bytes in the file (``np.savez`` stores
+    them uncompressed), so that a rank reading its shard of a leaf reads
+    only those rows; a compressed member is read whole."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            name = info.filename.removesuffix(".npy")
+            if info.compress_type == zipfile.ZIP_STORED:
+                f.seek(info.header_offset + 26)  # the local header's name and extra lengths
+                n_name, n_extra = struct.unpack("<HH", f.read(4))
+                f.seek(info.header_offset + 30 + n_name + n_extra)
+                version = np.lib.format.read_magic(f)
+                read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                        else np.lib.format.read_array_header_2_0)
+                shape, fortran, dtype = read(f)
+                if not dtype.hasobject and shape and 0 not in shape:
+                    out[name] = np.memmap(path, dtype=dtype, mode="r", offset=f.tell(),
+                                          shape=shape, order="F" if fortran else "C")
+                    continue
+            out[name] = np.load(io.BytesIO(zf.read(info)))
+    return out
+
+
+def _placements(tree, specs: Mapping | None, prefix: str = "") -> dict:
+    """Flattened path -> (spec, global shape or None) of every sharded leaf:
+    a sharded model's parameters (its ``layout``) and ``specs``' entries."""
+    out = {}
+    kids = _children(tree)
+    layout = getattr(tree, "layout", None) if isinstance(tree, nn.Module) else None
+    if layout is not None:
+        for name, _ in kids:
+            out[f"{prefix}{name}"] = (layout.specs[name], layout.shapes[name])
+    elif kids is not None and not isinstance(tree, nn.Module):
+        for key, sub in kids:
+            out.update(_placements(sub, None, f"{prefix}{key}{_SEP}"))
+    for k, v in (specs or {}).items():
+        out[k] = (v.spec, v.shape) if isinstance(v, Placement) else (tuple(v), None)
+    return out
+
+
+def _mesh_of(tree, mesh):
+    """The mesh a tree's shards live on: ``mesh``, else a sharded model's."""
+    if mesh is not None:
+        return mesh
+    for node in [tree] + [sub for _, sub in (_children(tree) or [])]:
+        layout = getattr(node, "layout", None) if isinstance(node, nn.Module) else None
+        if layout is not None:
+            return layout.mesh
+    return None
+
+
+def gathered_host(tree, *, mesh=None, specs: Mapping | None = None):
+    """``(host leaves or None, writer)``: every sharded leaf gathered whole
+    (a collective: every rank of the mesh calls this, in one order) and, on
+    the writer (rank 0 of the mesh, or the one process), every leaf copied
+    to the host."""
+    mesh = _mesh_of(tree, mesh)
+    placed = _placements(tree, specs)
+    if placed and mesh is None:
+        raise ValueError("sharded leaves need the mesh they live on (mesh=)")
+    writer = mesh is None or mesh.rank == 0
+    host = {}
+    for k, v in _flatten(tree).items():
+        if k in placed:
+            spec, shape = placed[k]
+            v = SH.gather_full(v, spec, mesh, shape)
+        if writer:
+            host[k] = to_numpy(v)
+    return (host if writer else None), writer
 
 
 def _write(host: dict, directory: str, *, step: int, extras: dict | None) -> None:
@@ -103,9 +199,22 @@ def _write(host: dict, directory: str, *, step: int, extras: dict | None) -> Non
     os.rename(tmp, directory)  # atomic publish
 
 
-def save_pytree(tree, directory: str, *, step: int, extras: dict | None = None) -> None:
-    """Write ``tree``'s leaves and the manifest to ``directory``."""
-    _write(_host(tree), directory, step=step, extras=extras)
+def save_pytree(tree, directory: str, *, step: int, extras: dict | None = None, mesh=None,
+                specs: Mapping | None = None) -> None:
+    """Write ``tree``'s leaves and the manifest to ``directory`` (on a mesh:
+    module docstring)."""
+    host, writer = gathered_host(tree, mesh=mesh, specs=specs)
+    if writer:
+        _write(host, directory, step=step, extras=extras)
+
+
+def _like_device(tree_like) -> torch.device:
+    """The device of ``tree_like``'s tensors (a model's: its parameters'),
+    else ``"cuda"``, which raises without a card."""
+    for v in _flatten(tree_like).values():
+        if isinstance(v, torch.Tensor) and v.device.type != "meta":
+            return v.device
+    return resolve_device("cuda")
 
 
 def _rebuild(like, flat: dict, prefix: str, device):
@@ -132,15 +241,30 @@ def _rebuild(like, flat: dict, prefix: str, device):
     return type(like)(values)
 
 
-def restore_pytree(tree_like, directory: str, *, device="cpu"):
+def restore_pytree(tree_like, directory: str, *, device=None, mesh=None,
+                   specs: Mapping | None = None):
     """``(tree, manifest)``: the stored leaves in ``tree_like``'s structure
-    (see the module's docstring), tensors on ``device``."""
+    (see the module's docstring), tensors on ``device`` (default: where
+    ``tree_like``'s are; on a mesh, its ranks').  On a ``mesh``, each
+    sharded leaf (a sharded model's parameters and ``specs``' entries) is
+    this rank's shard of the stored one."""
+    mesh = _mesh_of(tree_like, mesh)
+    if device is None:
+        device = mesh.device if mesh is not None else _like_device(tree_like)
+    placed = _placements(tree_like, specs)
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
-    with np.load(os.path.join(directory, "shard_p0.npz")) as data:
-        flat = {k: from_numpy(data[k], manifest["leaves"][k]["dtype"])
-                for k in _flatten(tree_like)}
-    return _rebuild(tree_like, flat, "", torch.device(device)), manifest
+    data = _stored_arrays(os.path.join(directory, "shard_p0.npz"))
+    flat = {}
+    for k in _flatten(tree_like):
+        a, dtype = data[k], manifest["leaves"][k]["dtype"]
+        if k in placed:  # only this rank's rows are read
+            slices, padded = SH.block_slices(a.shape, placed[k][0], mesh)
+            flat[k] = SH.padded_to(from_numpy(a[slices], dtype), padded)
+        else:
+            flat[k] = from_numpy(a, dtype)
+    del data
+    return _rebuild(tree_like, flat, "", resolve_device(device)), manifest
 
 
 class CheckpointManager:
@@ -175,9 +299,16 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def save(self, tree, step: int, *, extras=None, blocking: bool = True) -> None:
+    def save(self, tree, step: int, *, extras=None, blocking: bool = True, mesh=None,
+             specs: Mapping | None = None) -> None:
+        """Save ``tree`` as ``step`` (on a mesh every rank calls it: module
+        docstring)."""
         self.wait()
-        host = _host(tree)  # on the host before control returns: training may go on
+        # on the host before control returns (training may go on), every
+        # gather made here, on the caller's thread
+        host, writer = gathered_host(tree, mesh=mesh, specs=specs)
+        if not writer:
+            return
 
         def write():
             try:
@@ -193,13 +324,14 @@ class CheckpointManager:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
-    def restore(self, tree_like, *, step: int | None = None, device="cpu"):
+    def restore(self, tree_like, *, step: int | None = None, device=None, mesh=None,
+                specs: Mapping | None = None):
         """``(tree, manifest)`` of ``step`` (the latest by default), or
-        ``(None, None)`` where there is none."""
+        ``(None, None)`` where there is none (:func:`restore_pytree`)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
-        return restore_pytree(tree_like, self._dir(step), device=device)
+        return restore_pytree(tree_like, self._dir(step), device=device, mesh=mesh, specs=specs)
 
     def _gc(self) -> None:
         for s in self.all_steps()[: -self.keep]:

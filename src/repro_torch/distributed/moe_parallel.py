@@ -32,7 +32,9 @@ rows.  Gradients follow the reference's ``shard_map`` convention
 (:mod:`.sharding`): the block's output is one value over ``"model"``, the
 experts' and router's gradients are summed over the data axes, ``dx`` over
 ``"model"``; parameters outside the block (the shared expert, the rest of
-the model) keep the gradient of the rank's data shard.  With gradients on,
+the model) keep the gradient of the rank's data shard.  In a sharded model
+(:mod:`.fsdp`) the block gets its expert slice gathered over the data
+axes, and those gathers' backwards do the data axes' sum.  With gradients on,
 each chunk is rematerialized (``torch.utils.checkpoint``); the recompute
 runs the chunk's collectives again, in the same order on every rank.
 """
@@ -111,12 +113,17 @@ def make_ep_moe(mesh, dp_axes: tuple, ep_axis: str = EP_AXIS):
         b, s, d = x.shape
         be = backends.get_backend(backend, x.device)
         grad = torch.is_grad_enabled()
-        if grad:  # the shard_map boundary: inputs replicated over axes they are not split on
+        if grad and not getattr(p, "gathered", False):
+            # the shard_map boundary: inputs replicated over axes they are not split on
             p_rep = mesh.sub(others)
             x = sharding.replicated_input(x_rep, x)
             w = {n: sharding.replicated_input(p_rep, getattr(p, n))
                  for n in ("wi", "wg", "wo")}
             router = sharding.replicated_input(p_rep, p.router.kernel)
+        elif grad:  # a sharded model's weights: their gathers sum the data ranks' gradients
+            x = sharding.replicated_input(x_rep, x)
+            w = {n: getattr(p, n) for n in ("wi", "wg", "wo")}
+            router = p.router.kernel
         else:
             w = {n: getattr(p, n) for n in ("wi", "wg", "wo")}
             router = p.router.kernel

@@ -1,5 +1,7 @@
-"""Meshes of the port: one process per shard (counterpart of the data half
-of :mod:`repro.distributed.sharding`).
+"""Meshes of the port: one process per shard (counterpart of
+:mod:`repro.distributed.sharding`: its data half, the meshes and
+collectives, and its model half, the logical-axis rules and specs, at the
+end of this module).
 
 The reference's mesh is one controller over a global array: device ``i``
 holds rows ``[i·n_loc, (i+1)·n_loc)`` of the input padded with EMPTY to
@@ -31,6 +33,14 @@ mesh's process group.
   gradient, and :func:`replicated_input` / :func:`replicated_output` the
   boundary of per-rank work, in the reference's ``shard_map`` gradient
   convention (set out above them below).
+* The model half: ``DEFAULT_RULES``, :func:`rules_for_mesh`,
+  :func:`spec_from_axes`, :func:`tree_specs`, :func:`batch_spec`,
+  :func:`cache_specs` and :func:`opt_state_specs` as the reference's (a
+  spec is a tuple, as its ``PartitionSpec`` holds them), on a mesh of
+  ranks or an :class:`AbstractMesh`; :func:`shard_of` (this rank's block of
+  a global tensor, GSPMD's layout: the counterpart of ``shardings_for``
+  and ``device_put``) and its inverse :func:`gather_full` (the counterpart
+  of ``host_local_array``'s global array).
 
 Gloo takes CUDA tensors for the three collectives used here and stages
 them through host memory itself (probed on an H100 with torch 2.11.0 and
@@ -63,12 +73,19 @@ BACKENDS = ("gloo", "nccl")
 # on host tensors, and by kind (the ``torch.distributed`` call made; a
 # ``ppermute`` is an ``all_to_all_single`` with one nonzero split each way)
 KINDS = ("all_gather", "all_to_all", "all_reduce", "ppermute")
-COLLECTIVES = {"card": 0, "host": 0, **{k: 0 for k in KINDS}}
+# ``<kind>_bytes``: the bytes of each call's result on this rank, with the
+# reference roofline's wire factors (an all-reduce counts twice: a ring's
+# reduce-scatter and all-gather phases)
+COLLECTIVES = {"card": 0, "host": 0, **{k: 0 for k in KINDS},
+               **{f"{k}_bytes": 0 for k in KINDS}}
+_WIRE_FACTOR = {"all_gather": 1, "all_to_all": 1, "all_reduce": 2, "ppermute": 1}
 
 
-def _count(t: torch.Tensor, kind: str) -> None:
+def _count(t: torch.Tensor, kind: str, world: int = 1) -> None:
     COLLECTIVES["card" if t.is_cuda else "host"] += 1
     COLLECTIVES[kind] += 1
+    n = t.numel() * t.element_size() * (world if kind == "all_gather" else 1)
+    COLLECTIVES[f"{kind}_bytes"] += n * _WIRE_FACTOR[kind]
 
 
 def _env_int(*names: str) -> int | None:
@@ -337,7 +354,7 @@ def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
         return t[None].clone()
     src = t.contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.world)]
-    _count(src, "all_gather")
+    _count(src, "all_gather", mesh.world)
     dist.all_gather(parts, src, group=mesh.group)
     return torch.stack(parts)
 
@@ -549,3 +566,287 @@ def ppermute(mesh: Mesh, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
     ``ppermute`` with that permutation); the backward sends the cotangent
     back, ``-shift``."""
     return _PPermute.apply(t, mesh, shift)
+
+
+# ---------------------------------------------------------------------------
+# the model half: logical-axis rules, specs, and a tensor's shard
+# ---------------------------------------------------------------------------
+#
+# A model's parameters carry logical axis names ("embed", "heads", "vocab",
+# "expert", ...; ``repro_torch.models.model.logical_axes``).  Rules map them
+# to mesh axes, and a spec is what the reference's ``PartitionSpec`` holds: a
+# tuple with one entry per dimension, each None (replicated), a mesh axis
+# name, or a tuple of names (split over their product, the first the
+# slowest).  A conflict pass keeps a mesh axis at most once a spec: the
+# first logical axis wins, later ones fall back to replication, and a tuple
+# rule keeps only its axes still free.  The default recipe, the reference's:
+#
+#   vocab / heads / kv_heads / mlp / expert / inner -> "model"   (TP/EP)
+#   embed                                           -> "data"    (FSDP)
+#   layers / lora / unnamed                         -> replicated
+#
+# with the batch of activations and inputs split over ("pod", "data").  A
+# dimension that does not divide its axes' ranks is split as GSPMD splits
+# it: blocks of ceil(n / ranks), the last ones padded with zeros (an
+# all-pad block is possible), so bytes at rest count the pad.
+
+DEFAULT_RULES: dict[str, Any] = {
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "expert": "model",
+    "inner": "model",
+    "embed": "data",  # FSDP / ZeRO-3
+    "lora": None,
+    "layers": None,
+}
+DATA_AXES = ("pod", "data")
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axes and sizes without ranks (the counterpart of JAX's
+    ``AbstractMesh``): what the spec functions read, for meshes larger than
+    the world at hand (the production meshes' 256 and 512 ranks)."""
+
+    axis_names: tuple
+    shape: dict
+
+    @classmethod
+    def of(cls, shape, axes) -> "AbstractMesh":
+        return cls(tuple(axes), dict(zip(axes, (int(n) for n in shape))))
+
+
+def rules_for_mesh(mesh) -> dict[str, Any]:
+    """The default rules; with a ``"pod"`` axis FSDP spans both data axes
+    (``embed`` -> ``("pod", "data")``), so parameter shards halve when pods
+    double."""
+    rules = dict(DEFAULT_RULES)
+    if "pod" in mesh.axis_names:
+        rules["embed"] = ("pod", "data")
+    return rules
+
+
+def spec_from_axes(axes, rules=None) -> tuple:
+    """A tuple of logical names (None for an unnamed dimension) -> a spec,
+    with the conflict pass (module comment above)."""
+    rules = rules or DEFAULT_RULES
+    used: set[str] = set()
+    out = []
+    for ax in axes:
+        mesh_ax = rules.get(ax) if ax is not None else None
+        if isinstance(mesh_ax, tuple):
+            free = tuple(a for a in mesh_ax if a not in used)
+            if not free:
+                out.append(None)
+                continue
+            out.append(free if len(free) > 1 else free[0])
+            used.update(free)
+        elif mesh_ax is None or mesh_ax in used:
+            out.append(None)
+        else:
+            out.append(mesh_ax)
+            used.add(mesh_ax)
+    return tuple(out)
+
+
+def tree_specs(spec_tree, rules=None):
+    """A tree (dicts, lists, tuples of trees) whose leaves are tuples of
+    logical names -> the same tree of specs."""
+    if isinstance(spec_tree, dict):
+        return {k: tree_specs(v, rules) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [tree_specs(v, rules) for v in spec_tree]
+    return spec_from_axes(spec_tree, rules)
+
+
+def map_specs(fn, tree):
+    """``fn`` on every spec of a tree of dicts and pairs (a spec is a tuple
+    of entries, a pair of spec trees a tuple of dicts)."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and tree and all(isinstance(t, dict) for t in tree):
+        return tuple(map_specs(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _data_entry(mesh):
+    dp = tuple(a for a in DATA_AXES if a in mesh.axis_names)
+    return dp if len(dp) > 1 else dp[0]
+
+
+def batch_spec(mesh, ndim: int, *, batch_axis: int = 0) -> tuple:
+    """Inputs: the batch dimension split over every data axis of ``mesh``."""
+    parts = [None] * ndim
+    parts[batch_axis] = _data_entry(mesh)
+    return tuple(parts)
+
+
+def cache_specs(cfg, mesh):
+    """Decode caches (the port's ``init_cache`` trees): batch over the data
+    axes; K/V heads over ``"model"`` when they divide its ranks, else the
+    cache's sequence over ``"model"`` (flash-decoding's split); MLA's latent
+    by its channels and its rope key by sequence; Mamba's conv channels and
+    SSM heads over ``"model"``."""
+    dp = _data_entry(mesh)
+    tp = mesh.shape["model"]
+
+    def attn():
+        if cfg.mla is not None:
+            return {"latent": (None, dp, None, "model"), "k_rope": (None, dp, "model", None),
+                    "index": (None,)}
+        if (cfg.n_kv_heads * cfg.kv_dup) % tp == 0:
+            kv = (None, dp, None, "model", None)
+        else:
+            kv = (None, dp, "model", None, None)  # sequence-sharded cache
+        return {"k": kv, "v": kv, "index": (None,)}
+
+    def mamba():
+        return {"conv": (None, dp, None, "model"), "ssm": (None, dp, "model", None, None)}
+
+    if cfg.family == "ssm":
+        return mamba()
+    if cfg.family == "hybrid":
+        return (mamba(), attn())
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        return (attn(), attn())
+    return attn()
+
+
+def opt_state_specs(param_specs: dict, opt_name: str):
+    """``(step spec, first moments' specs, second moments')``, leaf by leaf
+    from the parameters' (a dict by leaf path): AdamW's moments as their
+    parameter; Adafactor's factored rows drop the last entry, its columns
+    the second to last (a 1-D leaf: rows as the leaf, columns ``(None,)``)."""
+
+    def rows(s):
+        return s[:-1] if len(s) >= 2 else s
+
+    def cols(s):
+        return s[:-2] + s[-1:] if len(s) >= 2 else (None,)
+
+    if opt_name == "adamw":
+        return (), dict(param_specs), dict(param_specs)
+    return (), {k: rows(s) for k, s in param_specs.items()}, \
+        {k: cols(s) for k, s in param_specs.items()}
+
+
+def _entry_axes(entry) -> tuple:
+    return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec splits over, in the mesh's order of its entries."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def _ways(mesh, entry) -> int:
+    return math.prod(mesh.shape[a] for a in _entry_axes(entry))
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    """A shard's shape (GSPMD's: ``ceil(n / ranks)`` on a split dimension,
+    padding included), on a mesh of ranks or an :class:`AbstractMesh`."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(-(-int(n) // _ways(mesh, e)) for n, e in zip(shape, spec))
+
+
+def _block(mesh, entry) -> int:
+    """This rank's block along a dimension split by ``entry``: row-major
+    over the entry's axes (the first the slowest), as GSPMD numbers them."""
+    idx = 0
+    for a in _entry_axes(entry):
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+    return idx
+
+
+def block_slices(shape, spec, mesh) -> tuple[tuple, tuple]:
+    """``(slices, padded shape)``: the rows of a global tensor of ``shape``
+    that this rank's block under ``spec`` holds, and the block's shape with
+    its padding (:func:`shard_of`)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    slices, padded = [], []
+    for n, e in zip(shape, spec):
+        n, ways = int(n), _ways(mesh, e)
+        blk = -(-n // ways)
+        lo = min(_block(mesh, e) * blk, n) if ways > 1 else 0
+        slices.append(slice(lo, min(lo + blk, n)))
+        padded.append(blk)
+    return tuple(slices), tuple(padded)
+
+
+def padded_to(part: torch.Tensor, shape) -> torch.Tensor:
+    """``part`` in the top corner of zeros of ``shape`` (``part`` itself, as
+    a contiguous copy, where it has that shape)."""
+    if tuple(part.shape) == tuple(shape):
+        return part.clone(memory_format=torch.contiguous_format)
+    out = torch.zeros(tuple(shape), dtype=part.dtype, device=part.device)
+    out[tuple(slice(0, s) for s in part.shape)] = part
+    return out
+
+
+def shard_of(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` under ``spec`` on
+    ``mesh`` (a :class:`NamedMesh`), as GSPMD lays it out: on each split
+    dimension the ``ceil(n / ranks)`` rows from ``block * ceil``, padded with
+    zeros past ``n``.  A new tensor (``t`` may be freed)."""
+    slices, padded = block_slices(t.shape, spec, mesh)
+    return padded_to(t[slices], padded)
+
+
+def valid_slices(full_shape, spec, mesh) -> tuple:
+    """The slices of this rank's shard that hold the tensor (the rest is
+    :func:`shard_of`'s padding)."""
+    spec = tuple(spec) + (None,) * (len(full_shape) - len(spec))
+    out = []
+    for n, e in zip(full_shape, spec):
+        blk = -(-int(n) // _ways(mesh, e))
+        out.append(slice(0, max(0, min(blk, int(n) - _block(mesh, e) * blk))))
+    return tuple(out)
+
+
+def gather_axes_mesh(mesh, axes) -> Mesh:
+    """The 1-D sub-mesh over ``axes`` (any order; taken in the mesh's)."""
+    return mesh.sub(tuple(a for a in mesh.axis_names if a in set(axes)))
+
+
+def assemble(parts: torch.Tensor, spec, mesh, group_axes: tuple) -> torch.Tensor:
+    """The padded global tensor from every rank's shard of ``group_axes``'s
+    sub-mesh, stacked in that sub-mesh's rank order (``parts`` (W, *shard));
+    dimensions split over axes outside ``group_axes`` keep this rank's
+    block."""
+    spec = tuple(spec) + (None,) * (parts.dim() - 1 - len(spec))
+    shard = parts.shape[1:]
+    sizes = [mesh.shape[a] for a in group_axes]
+    ways = [(_ways(mesh, e) if set(_entry_axes(e)) <= set(group_axes) else 1) for e in spec]
+    full = parts.new_empty(tuple(n * w for n, w in zip(shard, ways)))
+    for r in range(parts.shape[0]):
+        at = dict(zip(group_axes, np.unravel_index(r, sizes)))
+        idx = []
+        for dim, e in enumerate(spec):
+            if ways[dim] == 1:
+                idx.append(slice(None))
+                continue
+            b = 0
+            for a in _entry_axes(e):
+                b = b * mesh.shape[a] + int(at[a])
+            idx.append(slice(b * shard[dim], (b + 1) * shard[dim]))
+        full[tuple(idx)] = parts[r]
+    return full
+
+
+def gather_full(t: torch.Tensor, spec, mesh, shape=None) -> torch.Tensor:
+    """The inverse of :func:`shard_of`: every rank's block all-gathered over
+    the axes ``spec`` splits on and put in place, trimmed to ``shape``
+    (default: the padded shape).  Every rank of the mesh calls it (a
+    collective); no gradient."""
+    axes = spec_axes(spec)
+    if axes and math.prod(mesh.shape[a] for a in axes) > 1:
+        group = gather_axes_mesh(mesh, axes)
+        order = tuple(a for a in mesh.axis_names if a in set(axes))
+        with torch.no_grad():
+            t = assemble(all_gather(group, t), spec, mesh, order)
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        t = t[tuple(slice(0, int(n)) for n in shape)]
+    return t.contiguous()

@@ -9,11 +9,21 @@ runs a smoke configuration on the CPU with the plain versions; without
 (``--full`` for the published configuration).  Checkpoints carry the
 model, the optimizer's moments and the data loader's cursor, so
 ``--resume`` continues from the latest one bit for bit as if the run had
-not stopped.  On SIGTERM the loop saves a checkpoint and exits.
+not stopped.  On SIGTERM the loop saves a checkpoint and exits (on a
+mesh, every rank at the step after which any rank had the signal).
+
+``train(..., mesh=)`` is the same loop on a data x model mesh of ranks
+(every rank calls it with the same arguments, as the reference's driver
+runs one program on its production mesh): the model and the moments are
+sharded by the logical-axis rules, each rank trains on its data shard of
+the loader's batch, and the checkpoints hold the gathered leaves in the
+one-process format (rank 0 writes them), so ``resume`` works bit for bit
+on a mesh and from any mesh's checkpoint.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses as dc
 import signal
 import time
 
@@ -24,6 +34,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.types import resolve_device
 from repro_torch.data import DataLoader
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.models.config import ModelConfig
 
@@ -50,24 +61,37 @@ def make_batch(cfg: ModelConfig, batch_np: dict, dev: torch.device, emb=None) ->
 
 def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8, seq: int = 128,
           ckpt_dir: str | None = None, resume: bool = False, lr: float = 3e-4,
-          log_every: int = 10, save_every: int = 25, device="cuda") -> list[float]:
+          log_every: int = 10, save_every: int = 25, device="cuda", mesh=None) -> list[float]:
     """Train ``arch`` for ``steps`` steps (from the latest checkpoint with
     ``resume``) and return the losses of the steps run here.  The model is
     drawn from seed 0 on ``device``; batches come from ``DataLoader(vocab,
     batch, seq, seed=17)``.  A checkpoint is saved every ``save_every``
-    steps, at the last step and on SIGTERM (then the loop stops)."""
-    dev = resolve_device(device)
+    steps, at the last step and on SIGTERM (then the loop stops).  On a
+    ``mesh`` (the module docstring) the device is the mesh's and the
+    losses are the global batch's; rank 0 alone prints, and the ranks
+    agree after each step whether any of them has had a SIGTERM, so that
+    all of them save and stop at the same step."""
     cfg = get_config(arch, smoke=smoke)
-    train_step, init_state, opt_name = ST.make_train_step(cfg, lr=lr)
+    if mesh is not None:
+        SH.check_mesh_device(mesh, device)
+        dev = mesh.device
+        cfg = dc.replace(cfg, mesh_axes=tuple(mesh.axis_names))
+    else:
+        dev = resolve_device(device)
+    talk = mesh is None or mesh.rank == 0
+    everyone = None if mesh is None else mesh.sub(mesh.axis_names)
+    train_step, init_state, opt_name = ST.make_train_step(cfg, lr=lr, mesh=mesh)
     state = init_state(torch.Generator(device=dev).manual_seed(0))
+    specs = None if mesh is None else ST.moment_placements(cfg, mesh, opt_name)
     loader = DataLoader(cfg.vocab, batch, seq, seed=17)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
     if mgr and resume and mgr.latest_step() is not None:
-        state, manifest = mgr.restore(state, device=dev)
+        state, manifest = mgr.restore(state, device=dev, mesh=mesh, specs=specs)
         loader = DataLoader.from_state(cfg.vocab, batch, seq, manifest["extras"]["loader"])
         start_step = manifest["step"]
-        print(f"resumed from step {start_step}")
+        if talk:
+            print(f"resumed from step {start_step}")
     emb = frontend_embeddings(cfg) if cfg.frontend_stub else None
 
     stop = {"now": False}
@@ -76,24 +100,31 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8, seq
     t0 = time.perf_counter()
     try:
         for i in range(start_step, steps):
-            state, metrics = train_step(state, make_batch(cfg, loader.next(), dev, emb))
+            b = make_batch(cfg, loader.next(), dev, emb)
+            state, metrics = train_step(state, b if mesh is None else ST.local_batch(b, mesh))
             losses.append(float(metrics["loss"]))
-            if (i + 1) % log_every == 0:
+            if talk and (i + 1) % log_every == 0:
                 dt = (time.perf_counter() - t0) / log_every
                 print(f"step {i + 1}: loss={losses[-1]!r} nll={float(metrics['nll']):.4f} "
                       f"gnorm={float(metrics['grad_norm']):.3f} {dt * 1e3:.0f} ms/step",
                       flush=True)
                 t0 = time.perf_counter()
-            if mgr and ((i + 1) % save_every == 0 or stop["now"] or i + 1 == steps):
+            halt = stop["now"]  # a signal after this line is read at the next step
+            if mesh is not None:  # a save is a collective: every rank stops at one step
+                halt = bool(SH.host_all_reduce(everyone, [halt], "max")[0])
+            if mgr and ((i + 1) % save_every == 0 or halt or i + 1 == steps):
                 mgr.save(state, i + 1, extras={"loader": loader.state(), "optimizer": opt_name},
-                         blocking=False)
-            if stop["now"]:
-                print("preemption signal: checkpoint saved, exiting")
+                         blocking=False, mesh=mesh, specs=specs)
+            if halt:
+                if talk:
+                    print("preemption signal: checkpoint saved, exiting")
                 break
     finally:
         signal.signal(signal.SIGTERM, previous)
         if mgr:
             mgr.wait()
+            if mesh is not None:  # rank 0's files are written before any rank returns
+                SH.barrier(everyone)
     return losses
 
 

@@ -8,8 +8,11 @@ mirror the reference's parameter dicts (``attn.wq.kernel`` is
 reference's weights without transposes: a projection's ``kernel`` is
 ``(d_in, d_out)`` and ``dense`` computes ``x @ kernel``.  Every tensor is
 drawn in float32 from an explicit ``torch.Generator`` with the reference's
-scale, then cast.  The reference's activation-sharding ``hint`` is a no-op
-without a mesh and has no counterpart.  Parameters are built without
+scale, then cast.  Each parameter carries its logical axis names (``axes``,
+the reference's spec entries), from which a sharded model takes its
+layout.  The reference's activation-sharding ``hint`` has no counterpart:
+the port's ranks gather a sharded layer's weights instead
+(:mod:`repro_torch.distributed.fsdp`).  Parameters are built without
 gradients, for serving; ``model.trainable`` switches a model's on for
 training.  With gradients on, the chunked attention rematerializes each
 query chunk in the backward pass, as the reference's ``jax.checkpoint`` of
@@ -17,6 +20,7 @@ its ``q_step``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -27,8 +31,30 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.config import ModelConfig
 
 
-def param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+_CUT: list = [None]  # set by ``cutting``: each new parameter's shard is kept
+
+
+@contextlib.contextmanager
+def cutting(cut):
+    """While open, :func:`param` keeps ``cut(tensor, axes)`` of each tensor
+    in place of the tensor (a sharded model's draw and cut, one tensor at a
+    time: no rank holds the whole model)."""
+    _CUT[0] = cut
+    try:
+        yield
+    finally:
+        _CUT[0] = None
+
+
+def param(t: torch.Tensor, axes: tuple) -> nn.Parameter:
+    """A parameter (gradients off) with its logical axis names ``axes`` (the
+    reference's spec entries for it: ``"embed"``, ``"heads"``, ..., None
+    for an unnamed dimension), kept as its ``axes`` attribute."""
+    if _CUT[0] is not None:
+        t = _CUT[0](t, axes)
+    p = nn.Parameter(t, requires_grad=False)
+    p.axes = tuple(axes)
+    return p
 
 
 DRAW_ELEMENTS = 1 << 26  # the most elements drawn in float32 at once (256 MB)
@@ -57,17 +83,22 @@ def normal(gen: torch.Generator | None, shape, scale: float, dtype, device) -> t
 
 
 class Dense(nn.Module):
-    def __init__(self, d_in: int, d_out: int, *, dtype, device, gen=None, bias=False):
+    """``kernel`` (d_in, d_out) of logical axes ``axes`` and an optional
+    ``bias`` (d_out,) of its last one, as the reference's ``make_dense``."""
+
+    def __init__(self, d_in: int, d_out: int, *, dtype, device, gen=None, bias=False,
+                 axes=("embed", "mlp")):
         super().__init__()
         self.kernel = param(normal(gen, (d_in, d_out), 1.0 / math.sqrt(max(1, d_in)), dtype,
-                                   device))
-        self.bias = param(torch.zeros((d_out,), dtype=dtype, device=device)) if bias else None
+                                   device), axes)
+        self.bias = (param(torch.zeros((d_out,), dtype=dtype, device=device), axes[-1:])
+                     if bias else None)
 
 
 class Norm(nn.Module):
-    def __init__(self, d: int, *, dtype, device):
+    def __init__(self, d: int, *, dtype, device, axes=("embed",)):
         super().__init__()
-        self.scale = param(torch.ones((d,), dtype=dtype, device=device))
+        self.scale = param(torch.ones((d,), dtype=dtype, device=device), axes)
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
@@ -215,10 +246,10 @@ class Attention(nn.Module):
         super().__init__()
         d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         kw = dict(dtype=dtype, device=device, gen=gen)
-        self.wq = Dense(d, h * dh, bias=cfg.qkv_bias, **kw)
-        self.wk = Dense(d, kh * dh, bias=cfg.qkv_bias, **kw)
-        self.wv = Dense(d, kh * dh, bias=cfg.qkv_bias, **kw)
-        self.wo = Dense(h * dh, d, **kw)
+        self.wq = Dense(d, h * dh, bias=cfg.qkv_bias, axes=("embed", "heads"), **kw)
+        self.wk = Dense(d, kh * dh, bias=cfg.qkv_bias, axes=("embed", "kv_heads"), **kw)
+        self.wv = Dense(d, kh * dh, bias=cfg.qkv_bias, axes=("embed", "kv_heads"), **kw)
+        self.wo = Dense(h * dh, d, axes=("heads", "embed"), **kw)
 
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
@@ -277,14 +308,15 @@ class MLA(nn.Module):
         d, h = cfg.d_model, cfg.n_heads
         qk = m.qk_nope_head_dim + m.qk_rope_head_dim
         kw = dict(dtype=dtype, device=device)
-        self.wq_a = Dense(d, m.q_lora_rank, gen=gen, **kw)
-        self.q_norm = Norm(m.q_lora_rank, **kw)
-        self.wq_b = Dense(m.q_lora_rank, h * qk, gen=gen, **kw)
-        self.wkv_a = Dense(d, m.kv_lora_rank + m.qk_rope_head_dim, gen=gen, **kw)
-        self.kv_norm = Norm(m.kv_lora_rank, **kw)
+        self.wq_a = Dense(d, m.q_lora_rank, gen=gen, axes=("embed", "lora"), **kw)
+        self.q_norm = Norm(m.q_lora_rank, axes=("lora",), **kw)
+        self.wq_b = Dense(m.q_lora_rank, h * qk, gen=gen, axes=("lora", "heads"), **kw)
+        self.wkv_a = Dense(d, m.kv_lora_rank + m.qk_rope_head_dim, gen=gen,
+                           axes=("embed", "lora"), **kw)
+        self.kv_norm = Norm(m.kv_lora_rank, axes=("lora",), **kw)
         self.wkv_b = Dense(m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim), gen=gen,
-                           **kw)
-        self.wo = Dense(h * m.v_head_dim, d, gen=gen, **kw)
+                           axes=("lora", "heads"), **kw)
+        self.wo = Dense(h * m.v_head_dim, d, gen=gen, axes=("heads", "embed"), **kw)
 
 
 def mla_attention(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
@@ -333,9 +365,9 @@ class MLP(nn.Module):
     def __init__(self, d: int, d_ff: int, act: str, *, dtype, device, gen=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device, gen=gen)
-        self.wi = Dense(d, d_ff, **kw)
-        self.wg = Dense(d, d_ff, **kw) if act == "swiglu" else None
-        self.wo = Dense(d_ff, d, **kw)
+        self.wi = Dense(d, d_ff, axes=("embed", "mlp"), **kw)
+        self.wg = Dense(d, d_ff, axes=("embed", "mlp"), **kw) if act == "swiglu" else None
+        self.wo = Dense(d_ff, d, axes=("mlp", "embed"), **kw)
 
 
 def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:

@@ -31,6 +31,7 @@ generator's device, :func:`params_from_numpy` copies the reference's onto
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Mapping
 
 import numpy as np
@@ -38,10 +39,13 @@ import torch
 from torch import nn
 
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import moe_parallel as MP
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.optimizers import leaf_shape
 
 # the reference's parameter subtrees stacked over layers (L, ...)
 STACKED = ("layers", "dense_layers")
@@ -80,7 +84,8 @@ class Model(nn.Module):
             return nn.ModuleList(T.Block(cfg, kind, gen=gen, experts=experts, **kw)
                                  for _ in range(n))
 
-        self.embed = L.param(L.normal(gen, (cfg.vocab, d), 0.01, **kw))
+        self.layout = None  # a sharded model's Layout (distributed.fsdp)
+        self.embed = L.param(L.normal(gen, (cfg.vocab, d), 0.01, **kw), ("vocab", "embed"))
         self.dense_layers = None
         if cfg.family == "ssm":
             self.layers = stack("mamba", cfg.n_layers)
@@ -88,9 +93,10 @@ class Model(nn.Module):
             n_groups, r = _n_groups(cfg), cfg.hybrid_lora_rank or 16
             self.layers = stack("mamba", cfg.n_layers)
             self.shared = T.Block(cfg, "attn_mlp", gen=gen, **kw)
-            self.shared_in = L.Dense(2 * d, d, gen=gen, **kw)
-            self.lora_a = L.param(L.normal(gen, (n_groups, 2 * d, r), 0.01, **kw))
-            self.lora_b = L.param(torch.zeros((n_groups, r, d), **kw))
+            self.shared_in = L.Dense(2 * d, d, gen=gen, axes=("mlp", "embed"), **kw)
+            self.lora_a = L.param(L.normal(gen, (n_groups, 2 * d, r), 0.01, **kw),
+                                  ("layers", "mlp", None))
+            self.lora_b = L.param(torch.zeros((n_groups, r, d), **kw), ("layers", None, "embed"))
         elif cfg.moe is not None:
             kd = cfg.moe.first_k_dense
             if kd:
@@ -100,10 +106,11 @@ class Model(nn.Module):
             self.layers = stack("attn_mlp", cfg.n_layers)
         self.ln_f = L.Norm(d, **kw)
         self.unembed = (None if cfg.tie_embeddings
-                        else L.param(L.normal(gen, (d, cfg.vocab), 0.01, **kw)))
+                        else L.param(L.normal(gen, (d, cfg.vocab), 0.01, **kw),
+                                     ("embed", "vocab")))
         if cfg.mtp:  # deepseek multi-token prediction: one extra block and projection
             self.mtp_block = T.Block(cfg, "attn_mlp", gen=gen, **kw)
-            self.mtp_proj = L.Dense(2 * d, d, gen=gen, **kw)
+            self.mtp_proj = L.Dense(2 * d, d, gen=gen, axes=("mlp", "embed"), **kw)
 
     @property
     def device(self) -> torch.device:
@@ -116,15 +123,81 @@ def _experts(cfg: ModelConfig, mesh):
     return None if mesh is None or cfg.moe is None else MP.expert_slice(cfg, mesh)
 
 
-def init(cfg: ModelConfig, gen: torch.Generator, *, mesh=None) -> Model:
+def abstract_model(cfg: ModelConfig) -> Model:
+    """The model on ``torch.device("meta")``: every parameter's shape,
+    dtype and logical axes, nothing allocated."""
+    return Model(cfg, device=torch.device("meta"))
+
+
+@functools.lru_cache(maxsize=64)
+def _leaves_of(cfg: ModelConfig) -> tuple[dict, dict]:
+    meta = abstract_model(cfg)
+    axes = {}
+    for name, t in meta.named_parameters():
+        path = leaf_path(name)
+        axes[path] = ("layers",) + t.axes if path.split("/")[0] in STACKED else t.axes
+    order = sorted(axes, key=lambda k: k.split("/"))
+    return {k: axes[k] for k in order}, {k: leaf_shape(v) for k, v in param_leaves(meta).items()}
+
+
+def logical_axes(cfg: ModelConfig) -> dict:
+    """The reference's logical spec tree (the second value of its
+    ``init``), by :func:`param_leaves` path: each leaf's tuple of logical
+    axis names, a layer stack's led by ``"layers"``."""
+    return dict(_leaves_of(cfg)[0])
+
+
+def leaf_shapes(cfg: ModelConfig) -> dict:
+    """Each :func:`param_leaves` leaf's global shape (a stack's ``(L, ...)``)."""
+    return dict(_leaves_of(cfg)[1])
+
+
+def _ep_layout(cfg: ModelConfig, mesh) -> bool:
+    """Whether a sharded model's MoE layers run ``sorted_ep`` on ``mesh``."""
+    return (cfg.moe is not None and cfg.moe.dispatch == "sorted_ep"
+            and cfg.mesh_axes is not None and MP.EP_AXIS in mesh.axis_names)
+
+
+def _build(cfg: ModelConfig, dev: torch.device, gen, mesh, sharded: bool) -> Model:
+    """The model on ``dev`` (drawn from ``gen``, or uninitialised): with
+    ``sharded`` each parameter cut to this rank's shard as it is made
+    (:func:`repro_torch.models.layers.cutting`) and the
+    :class:`repro_torch.distributed.fsdp.Layout` attached; else, on a mesh,
+    only the MoE layers' expert slices."""
+    if not sharded:
+        return Model(cfg, device=dev, gen=gen, experts=_experts(cfg, mesh))
+    if mesh is None:
+        raise ValueError("a sharded model needs a mesh")
+    SH.check_mesh_device(mesh, dev)
+    rules = SH.rules_for_mesh(mesh)
+    ep = _ep_layout(cfg, mesh)
+    if ep:
+        MP.expert_slice(cfg, mesh)  # the experts must split over "model"
+    with L.cutting(lambda t, axes: SH.shard_of(t, SH.spec_from_axes(axes, rules), mesh)):
+        model = Model(cfg, device=dev, gen=gen)
+    names = dict(abstract_model(cfg).named_parameters())
+    FS.Layout(mesh, {n: t.axes for n, t in names.items()},
+              {n: tuple(t.shape) for n, t in names.items()}, ep=ep).attach(model)
+    return model
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, *, mesh=None, sharded: bool = False) -> Model:
     """Random weights with the reference's scales, drawn one tensor at a
     time in float32 from ``gen`` on its device and cast to the config's
     dtype.  On a ``mesh`` with a ``"model"`` axis each MoE layer keeps only
     this rank's expert slice and router columns
     (:func:`repro_torch.distributed.moe_parallel.expert_slice`): the draw
     is one process's, and a layer's whole expert tensor is held only while
-    it is cut."""
-    return Model(cfg, device=resolve_device(gen.device), gen=gen, experts=_experts(cfg, mesh))
+    it is cut.  With ``sharded`` every leaf keeps only this rank's shard by
+    the logical-axis rules (:mod:`repro_torch.distributed.fsdp`), each
+    tensor cut as it is drawn: every rank draws the one-process model."""
+    return _build(cfg, resolve_device(gen.device), gen, mesh, sharded)
+
+
+def uninitialized(cfg: ModelConfig, *, device="cuda", mesh=None, sharded: bool = False) -> Model:
+    """The model with its parameters allocated but not drawn (a restore's
+    target); ``mesh`` and ``sharded`` as :func:`init`'s."""
+    return _build(cfg, resolve_device(device), None, mesh, sharded)
 
 
 def trainable(model: Model, on: bool = True) -> Model:
@@ -164,7 +237,7 @@ def _to_torch(a) -> torch.Tensor:
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], *, device="cuda",
-                      mesh=None) -> Model:
+                      mesh=None, sharded: bool = False) -> Model:
     """The reference's parameter pytree (NumPy arrays; the layer stacks
     stacked ``(L, ...)`` under ``"layers"`` and ``"dense_layers"``) as the
     port's model on ``device``: every leaf copied as it is, no transposes,
@@ -172,17 +245,20 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any], *, device="cuda
     the LoRA tensors stacked by group, the MTP weights) as it is.  On a
     ``mesh`` with a ``"model"`` axis, each MoE layer takes only this rank's
     slice of ``wi``/``wg``/``wo`` and of the router's columns, as the
-    reference's expert-parallel ``shard_map`` hands them to the rank.
+    reference's expert-parallel ``shard_map`` hands them to the rank; with
+    ``sharded`` every leaf takes only this rank's shard (:func:`init`).
     Raises unless the tree's leaves and the model's parameters match one to
     one."""
-    experts = _experts(cfg, mesh)
-    model = Model(cfg, device=resolve_device(device), experts=experts)
+    experts = None if sharded else _experts(cfg, mesh)
+    model = uninitialized(cfg, device=device, mesh=mesh, sharded=sharded)
     want = dict(model.named_parameters())
     seen = set()
 
     def put(name: str, value: torch.Tensor) -> None:
         if name not in want:
             raise KeyError(f"reference parameter {name} has no place in the port's model")
+        if sharded:
+            value = SH.shard_of(value, model.layout.specs[name], mesh)
         if experts is not None and ".moe." in f".{name}":
             lo, hi = experts
             if name.endswith(("moe.wi", "moe.wg", "moe.wo")):
@@ -224,28 +300,53 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
+def moment_spec(spec: tuple, leaf_shape: tuple, moment_shape: tuple, first: bool) -> tuple:
+    """A moment's spec from its leaf's, as ``sharding.opt_state_specs``
+    gives them: the leaf's where the moment has the leaf's shape (AdamW's,
+    a 1-D leaf's Adafactor rows), else Adafactor's rows (the ``first``
+    moment: the last entry dropped) or columns (the second to last;
+    ``(None,)`` for a 1-D leaf)."""
+    if tuple(moment_shape) == tuple(leaf_shape):
+        return spec
+    if first:
+        return spec[:-1]
+    return spec[:-2] + spec[-1:] if len(leaf_shape) >= 2 else (None,)
+
+
 def train_state_from_numpy(cfg: ModelConfig, params_tree: Mapping, m_tree: Mapping,
-                           v_tree: Mapping, step: int, *, device="cuda"):
+                           v_tree: Mapping, step: int, *, device="cuda", mesh=None):
     """The reference's ``TrainState`` (its parameter pytree and optimiser
     moments as NumPy arrays, and its step) as the port's: the model by
     :func:`params_from_numpy` with gradients on, and each moment leaf as it
     is, by the path of :func:`param_leaves` (AdamW's moments shaped like
     their leaf, Adafactor's row and column moments in the reference's
-    shapes: a layer stack's are the stack's)."""
+    shapes: a layer stack's are the stack's).  On a ``mesh`` the model is
+    sharded and each moment keeps this rank's shard, by its leaf's spec
+    (:func:`moment_spec`)."""
     from repro_torch.launch.steps import TrainState  # the step builders import this module
 
-    model = trainable(params_from_numpy(cfg, params_tree, device=device))
+    model = trainable(params_from_numpy(cfg, params_tree, device=device, mesh=mesh,
+                                        sharded=mesh is not None))
     leaves = param_leaves(model)
     dev = model.device
+    if mesh is not None:
+        specs = SH.tree_specs(logical_axes(cfg), SH.rules_for_mesh(mesh))
+        shapes = leaf_shapes(cfg)
 
-    def moments(tree: Mapping) -> dict:
+    def moments(tree: Mapping, first: bool) -> dict:
         flat = flatten_tree(tree)
         if set(flat) != set(leaves):
             raise KeyError(f"moment leaves {sorted(set(flat) ^ set(leaves))} do not match "
                            "the parameters'")
-        return {k: _to_torch(flat[k]).to(dev) for k in leaves}
+        out = {}
+        for k in leaves:
+            t = _to_torch(flat[k])
+            if mesh is not None:
+                t = SH.shard_of(t, moment_spec(specs[k], shapes[k], t.shape, first), mesh)
+            out[k] = t.to(dev)
+        return out
 
-    return TrainState(model, moments(m_tree), moments(v_tree), int(step))
+    return TrainState(model, moments(m_tree, True), moments(v_tree, False), int(step))
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +388,7 @@ def _cache_index(caches) -> int:
     return 0 if leaf is None else int(leaf.reshape(-1)[0])
 
 
-def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, backend):
+def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, backend, full):
     """Groups of ``period`` Mamba layers, each followed by the shared block
     on ``shared_in(concat(x, x0)) + concat(x, x0) @ lora_a[g] @ lora_b[g]``
     added to x.  ``caches``: None or ``(mamba caches (L, ...), attention
@@ -301,7 +402,7 @@ def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, b
         rows = slice(g * period, (g + 1) * period)
         grp = None if m_caches is None else {k: v[rows] for k, v in m_caches.items()}
         x, nc, a = T.apply_stack(p.layers[rows], cfg, x, positions, caches=grp,
-                                 dispatch=dispatch, backend=backend)
+                                 dispatch=dispatch, backend=backend, full=full)
         aux = aux + a
         new_m.append(nc)
         a_cache = None if a_caches is None else T.layer_cache(a_caches, g)
@@ -334,7 +435,12 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
     rows are written into the caches' tensors in place.  ``mrope_pos`` (3,
     B, S): an ``mrope`` model's (t, h, w) positions.  A dense-prefix MoE
     model's and the hybrid's caches are pairs, their new caches too (``(None,
-    None)`` without caches), as the reference's."""
+    None)`` without caches), as the reference's.  A sharded model
+    (``init(..., sharded=True)``) runs on its rank's data shard, each
+    layer's weights gathered where it runs
+    (:mod:`repro_torch.distributed.fsdp`)."""
+    p = FS.full_view(p)
+    full = FS.block_view(p)
     x = _embed_in(p, cfg, tokens)
     b, sq = x.shape[:2]
     if positions is None:
@@ -344,18 +450,19 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
     if mrope_pos is not None:
         mrope_pos = torch.as_tensor(mrope_pos, device=p.device)
     if cfg.family == "hybrid":
-        x, new_caches, aux = _hybrid_stacks(p, cfg, x, positions, caches, dispatch, backend)
+        x, new_caches, aux = _hybrid_stacks(p, cfg, x, positions, caches, dispatch, backend,
+                                            full)
     elif p.dense_layers is not None:
         dc, mc = (None, None) if caches is None else caches
         x, ndc, a1 = T.apply_stack(p.dense_layers, cfg, x, positions, caches=dc,
-                                   mrope_pos=mrope_pos)
+                                   mrope_pos=mrope_pos, full=full)
         x, nmc, a2 = T.apply_stack(p.layers, cfg, x, positions, caches=mc,
-                                   dispatch=dispatch, backend=backend)
+                                   dispatch=dispatch, backend=backend, full=full)
         new_caches, aux = (ndc, nmc), a1 + a2
     else:
         x, new_caches, aux = T.apply_stack(p.layers, cfg, x, positions, caches=caches,
                                            mrope_pos=mrope_pos, dispatch=dispatch,
-                                           backend=backend)
+                                           backend=backend, full=full)
     return _head(p, cfg, x), new_caches, aux
 
 
@@ -364,18 +471,26 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
 # ---------------------------------------------------------------------------
 
 
-def _masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, dp=None) -> torch.Tensor:
     """Mean cross-entropy in float32 over the positions whose label is >= 0.
     The reference contracts a (B, S, V) one-hot to keep vocabulary-sharded
     logits sharded; one device gathers the gold logit instead (the same
     value, without a float32 (B, S, V) one-hot: 1.24 GB at qwen3's vocabulary
-    and 2,048 tokens)."""
+    and 2,048 tokens).  On the data ranks ``dp``, each with its shard of
+    the batch, it is the global batch's mean, as GSPMD computes it: the
+    numerator and the mask count summed over the ranks (the masks differ
+    between shards), the value the global loss on every rank and its
+    gradient this shard's part."""
     mask = (labels >= 0).to(torch.float32)
     safe = labels.clamp_min(0).to(torch.int64)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, safe[..., None])[..., 0]
-    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    if dp is None or dp.world == 1:
+        return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    count = SH.all_reduce(dp, mask.sum(), "sum")
+    local = ((logz - gold) * mask).sum() / count.clamp_min(1.0)
+    return local + (SH.all_reduce(dp, local.detach(), "sum") - local.detach())
 
 
 def lm_loss(p: Model, cfg: ModelConfig, tokens, labels, *, mrope_pos=None, dispatch=None,
@@ -383,18 +498,22 @@ def lm_loss(p: Model, cfg: ModelConfig, tokens, labels, *, mrope_pos=None, dispa
     """``(total, {"nll", "aux"})``: the next-token cross-entropy of
     ``labels`` (B, S) (negative labels masked), plus ``aux_weight`` times
     the MoE load-balance loss, plus ``mtp_weight`` times the MTP loss where
-    the config has it."""
+    the config has it.  A sharded model's loss is the global batch's
+    (:func:`_masked_ce`, ``moe.load_balance``), each rank's tokens and
+    labels its data shard of the batch."""
+    p = FS.full_view(p)
+    dp = getattr(p, "dp_mesh", None)
     labels = torch.as_tensor(labels, device=p.device)
     logits, _, aux = forward(p, cfg, tokens, mrope_pos=mrope_pos, dispatch=dispatch,
                              backend=backend)
-    loss = _masked_ce(logits, labels)
+    loss = _masked_ce(logits, labels, dp)
     total = loss + aux_weight * aux
     if cfg.mtp:
-        total = total + mtp_weight * _mtp_loss(p, cfg, tokens, labels)
+        total = total + mtp_weight * _mtp_loss(p, cfg, tokens, labels, dp)
     return total, {"nll": loss, "aux": aux}
 
 
-def _mtp_loss(p: Model, cfg: ModelConfig, tokens, labels) -> torch.Tensor:
+def _mtp_loss(p: Model, cfg: ModelConfig, tokens, labels, dp=None) -> torch.Tensor:
     """DeepSeek-V3 multi-token prediction as the reference approximates it:
     predict t+2 from (emb(t), emb(t+1)) through ``mtp_proj`` and one extra
     ``attn_mlp`` block, then the head; the labels rolled by one, the last
@@ -408,7 +527,7 @@ def _mtp_loss(p: Model, cfg: ModelConfig, tokens, labels) -> torch.Tensor:
     h, _, _ = T.apply_block(p.mtp_block, cfg, h, positions)
     lab2 = torch.roll(labels, -1, dims=1).clone()
     lab2[:, -2:] = -1
-    return _masked_ce(_head(p, cfg, h), lab2)
+    return _masked_ce(_head(p, cfg, h), lab2, dp)
 
 
 # ---------------------------------------------------------------------------

@@ -47,17 +47,18 @@ class MoE(nn.Module):
         d, e, eff = cfg.d_model, m.num_experts, m.d_ff_expert
         lo, hi = experts or (0, e)
 
-        def experts_of(shape, scale):
+        def experts_of(shape, scale, axes):
             if gen is None:
-                return param(normal(None, (hi - lo,) + shape, scale, dtype, device))
-            return param(normal(gen, (e,) + shape, scale, dtype, device)[lo:hi].clone())
+                return param(normal(None, (hi - lo,) + shape, scale, dtype, device), axes)
+            return param(normal(gen, (e,) + shape, scale, dtype, device)[lo:hi].clone(), axes)
 
-        self.router = Dense(d, e, dtype=dtype, device=device, gen=gen)
+        self.router = Dense(d, e, dtype=dtype, device=device, gen=gen, axes=("embed", "expert"))
         if (lo, hi) != (0, e):
-            self.router.kernel = param(self.router.kernel[:, lo:hi].contiguous())
-        self.wi = experts_of((d, eff), 1.0 / (d ** 0.5))
-        self.wg = experts_of((d, eff), 1.0 / (d ** 0.5))
-        self.wo = experts_of((eff, d), eff ** -0.5)
+            self.router.kernel = param(self.router.kernel[:, lo:hi].contiguous(),
+                                       self.router.kernel.axes)
+        self.wi = experts_of((d, eff), 1.0 / (d ** 0.5), ("expert", "embed", "mlp"))
+        self.wg = experts_of((d, eff), 1.0 / (d ** 0.5), ("expert", "embed", "mlp"))
+        self.wo = experts_of((eff, d), eff ** -0.5, ("expert", "mlp", "embed"))
         self.shared = (MLP(d, eff * m.num_shared_experts, "swiglu", dtype=dtype, device=device,
                            gen=gen) if m.num_shared_experts else None)
 
@@ -81,12 +82,26 @@ def _route(logits: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype):
     return idx, w.to(dtype), probs
 
 
-def load_balance(probs: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
+def load_balance(probs: torch.Tensor, idx: torch.Tensor, e: int, mesh=None) -> torch.Tensor:
     """The load-balance auxiliary loss of router probabilities (B, S, E)
-    and top-k ids (B, S, K): ``E * sum(mean prob * mean assignment)``."""
-    me = probs.mean(dim=(0, 1))
-    frac = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1, 2))
-    return e * torch.sum(me * frac)
+    and top-k ids (B, S, K): ``E * sum(mean prob * mean assignment)``.  On
+    the data ranks of ``mesh`` (each with its shard of the batch) the means
+    are the global batch's, as GSPMD computes them: the value is the
+    global loss on every rank, its gradient this shard's part of it."""
+    if mesh is None or mesh.world == 1:
+        me = probs.mean(dim=(0, 1))
+        frac = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1, 2))
+        return e * torch.sum(me * frac)
+    from repro_torch.distributed import sharding
+
+    n = torch.tensor([probs.shape[0] * probs.shape[1]], dtype=torch.float32,
+                     device=probs.device)
+    counts = F.one_hot(idx, e).to(torch.float32).sum(dim=(0, 1, 2))
+    tot = sharding.all_reduce(mesh, torch.cat([counts, n]), "sum")
+    frac = tot[:-1] / (tot[-1] * idx.shape[-1])
+    local = e * torch.sum(probs.sum(dim=(0, 1)) / tot[-1] * frac)
+    total = sharding.all_reduce(mesh, local.detach(), "sum")
+    return local + (total - local.detach())
 
 
 def _expert_ffn(p: MoE, xs: torch.Tensor, be) -> torch.Tensor:
@@ -188,4 +203,4 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, dispatch: str | None
         y = _moe_dense_dispatch(p, cfg, x, idx, w, be)
     if p.shared is not None:
         y = y + mlp(p.shared, x, "swiglu")
-    return y, load_balance(probs, idx, m.num_experts)
+    return y, load_balance(probs, idx, m.num_experts, getattr(p, "dp_mesh", None))

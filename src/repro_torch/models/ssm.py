@@ -35,16 +35,17 @@ class Mamba2(nn.Module):
         d, di, nh = cfg.d_model, cfg.d_inner_ssm, cfg.n_ssm_heads
         gn = s.n_groups * s.d_state
         kw = dict(dtype=dtype, device=device)
-        self.in_proj = Dense(d, 2 * di + 2 * gn + nh, gen=gen, **kw)
-        self.out_proj = Dense(di, d, gen=gen, **kw)
+        self.in_proj = Dense(d, 2 * di + 2 * gn + nh, gen=gen, axes=("embed", "inner"), **kw)
+        self.out_proj = Dense(di, d, gen=gen, axes=("inner", "embed"), **kw)
         conv_dim = di + 2 * gn
-        self.conv_w = param(normal(gen, (s.d_conv, conv_dim), 1.0 / math.sqrt(s.d_conv), **kw))
-        self.conv_b = param(torch.zeros((conv_dim,), **kw))
+        self.conv_w = param(normal(gen, (s.d_conv, conv_dim), 1.0 / math.sqrt(s.d_conv), **kw),
+                            (None, "inner"))
+        self.conv_b = param(torch.zeros((conv_dim,), **kw), ("inner",))
         f32 = dict(dtype=torch.float32, device=device)
-        self.A_log = param(torch.log(torch.linspace(1.0, 16.0, nh, **f32)))
-        self.D = param(torch.ones((nh,), **f32))
-        self.dt_bias = param(torch.zeros((nh,), **f32))
-        self.norm = Norm(di, **kw)
+        self.A_log = param(torch.log(torch.linspace(1.0, 16.0, nh, **f32)), ("inner",))
+        self.D = param(torch.ones((nh,), **f32), ("inner",))
+        self.dt_bias = param(torch.zeros((nh,), **f32), ("inner",))
+        self.norm = Norm(di, axes=("inner",), **kw)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -105,19 +105,23 @@ def rematerialized(fn, *args):
 
 def apply_stack(blocks: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, caches=None, mrope_pos=None, dispatch=None,
-                backend="auto"):
+                backend="auto", full=None):
     """Apply the blocks in order.  ``caches``: None, or the stack's caches
     stacked over layers: attention's ``{"k", "v", "index"}`` (k/v ``(L, B,
     Smax, KH, Dh)``) or MLA's ``{"latent", "k_rope", "index"}``, whose rows
     the layers write in place, with ``index`` ``(L,)`` on the host; or
     Mamba's ``{"conv", "ssm"}``, whose layers return new tensors.  Returns
     ``(x, new_caches, aux)``.  Rematerializes each block where
-    :func:`remat_on`."""
+    :func:`remat_on`.  ``full``: a sharded model's ``fn(block) -> view``
+    (:func:`repro_torch.distributed.fsdp.block_view`), applied where the
+    block runs (inside the rematerialized function: the recompute gathers
+    the block's weights again)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    full = full or (lambda blk: blk)
     if remat_on(cfg, x, blocks, caches):
         for blk in blocks:
             def run(h, blk=blk):
-                out, _, a = apply_block(blk, cfg, h, positions, mrope_pos=mrope_pos,
+                out, _, a = apply_block(full(blk), cfg, h, positions, mrope_pos=mrope_pos,
                                         dispatch=dispatch, backend=backend)
                 return out, a
 
@@ -127,7 +131,7 @@ def apply_stack(blocks: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
     olds, news = [], []
     for i, blk in enumerate(blocks):
         cache = None if caches is None else layer_cache(caches, i)
-        x, nc, a = apply_block(blk, cfg, x, positions, cache=cache, mrope_pos=mrope_pos,
+        x, nc, a = apply_block(full(blk), cfg, x, positions, cache=cache, mrope_pos=mrope_pos,
                                dispatch=dispatch, backend=backend)
         aux = aux + a
         olds.append(cache)

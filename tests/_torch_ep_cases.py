@@ -2,6 +2,8 @@
 all-gather matmul and the GPipe pipeline, on the JAX package (``compute``,
 run by ``scripts/make_torch_ep_reference.py`` on 8 host devices) and on the
 port's ranks (``rank_main``, one spawned process a rank, joined over gloo).
+The same pool of ranks runs ``tests/_torch_sharding_cases.py``'s
+``POOL_CASES`` (``POOL_CASES`` here: every case, in order).
 
 Inputs come from per-case NumPy seeds; the MoE weights are the smoke
 model's (``test_torch_families.family_weights``), carried to both packages
@@ -15,6 +17,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+import _torch_sharding_cases as SC
 
 REFERENCE_FILE = Path(__file__).parent / "data" / "torch_ep_reference.npz"
 ARCH = "qwen3-moe-30b-a3b"
@@ -31,6 +35,7 @@ MESHES = {
     "ring8": ((8,), ("model",), None),
     "pipe4": ((4,), ("pod",), range(4)),
     "pair": ((2,), ("pair",), range(2)),
+    "8": ((8,), ("data",), None),
 }
 # the reference test's EP case (moe_chunk 64, capacity factor 4: no chunk
 # overflows), on four meshes, and at capacity factor 1 (chunks overflow)
@@ -48,6 +53,8 @@ PIPELINE = dict(mesh="pipe4", layers=8, batch=16, d=32, microbatches=4)
 STORED_CASES = tuple(BLOCKS) + ("serve-2x2",) + tuple(RINGS) + ("pipeline",)
 GRADCHECKS = ("boundary", "psum", "pmean", "all_gather_tiled", "all_to_all_blocks",
               "ppermute")
+# every case the pool runs, in order: these and tests/test_torch_sharding.py's
+POOL_CASES = STORED_CASES + ("gradcheck",) + SC.POOL_CASES
 
 
 def case_rng(name: str):
@@ -55,6 +62,8 @@ def case_rng(name: str):
 
 
 def mesh_of(name: str) -> str:
+    if name in SC.POOL_MESH:
+        return SC.POOL_MESH[name]
     if name in BLOCKS:
         return BLOCKS[name]["mesh"]
     return {"serve-2x2": SERVE["mesh"], "pipeline": PIPELINE["mesh"],
@@ -73,6 +82,12 @@ def block_cfg(get_config, name: str):
 def serve_cfg(get_config):
     cfg = dc.replace(get_config(ARCH, smoke=True), mesh_axes=MESHES[SERVE["mesh"]][1])
     return dc.replace(cfg, moe=dc.replace(cfg.moe, dispatch="sorted_ep"))
+
+
+def pool_inputs(name: str, workdir: Path) -> dict:
+    """A pool case's inputs, and the directory its ranks share."""
+    inp = SC.inputs(name) if name in SC.POOL_MESH else inputs(name)
+    return dict(inp, _workdir=str(workdir / f"case_{name}"))
 
 
 def inputs(name: str) -> dict:
@@ -361,12 +376,14 @@ def rank_main(rank: int, world: int, rdv: str, tasks, results) -> None:
         if task is None:
             break
         name, inp = task
+        workdir = inp.pop("_workdir")
         mesh = meshes[mesh_of(name)]
         if mesh is None:
             results.put((rank, name, "idle", None))
             continue
         try:
-            out = port(name, mesh, inp)
+            out = (SC.port(name, mesh, inp, workdir) if name in SC.POOL_MESH
+                   else port(name, mesh, inp))
             out["imported"] = sorted(m for m in ("jax", "repro") if m in sys.modules)
             results.put((rank, name, "ok", out))
         except Exception:  # reported to the test, which fails the case

@@ -806,6 +806,43 @@ def test_ep_block_on_the_card_matches_plain(dev, tmp_path):
         assert np.isfinite(res["bfloat16 cuda"]["y"]).all()
 
 
+def test_sharded_train_step_on_the_card_matches_plain(dev, tmp_path):
+    """Two ranks share the card over gloo: one float32 sharded train step
+    of the qwen3-moe smoke config (every leaf and moment sharded by the
+    logical-axis rules, ``sorted_ep``) on meshes (2, 1) and (1, 2), the
+    kernels against the plain versions from the same draw and batch: the
+    loss within rtol 1e-5, the gradient norm within rtol 1e-4, and each
+    shard of a parameter and of both AdamW moments (which hold the clipped
+    gradient, where the warmup's first update is below the parameters'
+    bound) within 1e-3 of its largest magnitude; the argsort and the
+    grouped matmul (forward and backward) launched."""
+    import _torch_sharding_cases as cases
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=cases.card_rank_main, daemon=True,
+                         args=(r, 2, str(tmp_path / "rdv"), q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    got = dict(q.get(timeout=300) for _ in procs)
+    for p in procs:
+        p.join(timeout=60)
+    for r, res in got.items():
+        assert isinstance(res, dict), res
+        for shape in ("(2, 1)", "(1, 2)"):
+            card, plain = res[f"{shape} cuda"], res[f"{shape} torch"]
+            assert card["loss"] == pytest.approx(plain["loss"], rel=1e-5)
+            assert card["grad_norm"] == pytest.approx(plain["grad_norm"], rel=1e-4)
+            for field in ("params", "m", "v"):
+                for n, want in plain[field].items():
+                    scale = max(np.abs(want).max(), 1e-12)
+                    err = np.abs(card[field][n] - want).max()
+                    assert err <= 1e-3 * scale, (r, shape, field, n)
+            launches = card["launches"]
+            assert launches["argsort"] > 0 and launches["grouped_matmul_bwd"] > 0, launches
+            assert plain["launches"]["argsort"] == 0
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------

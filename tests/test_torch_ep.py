@@ -7,7 +7,8 @@ gloo, rendezvous in a ``file://`` store) runs every case once, on the
 sub-meshes of ``tests/_torch_ep_cases.py``'s ``MESHES``, for the whole
 session: the first test process to need the results runs the pool under a
 file lock in the session's shared temp dir, the others read what it
-stored.  Cases:
+stored (``tests/test_torch_sharding.py``'s rank cases run on it too).
+Cases:
 
 * the reference test's EP block (smoke qwen3-moe, ``moe_chunk`` 64,
   capacity factor 4) on meshes (2, 4), (1, 4), (2, 2) and ("pod", "data",
@@ -89,8 +90,8 @@ def _run_pool(rdv: Path) -> dict:
         p.start()
     out = {}
     try:
-        for name in cases.STORED_CASES + ("gradcheck",):
-            inp = cases.inputs(name)
+        for name in cases.POOL_CASES:
+            inp = cases.pool_inputs(name, rdv.parent)
             for q in tasks:
                 q.put((name, inp))
             got, errors = {}, []
@@ -100,7 +101,7 @@ def _run_pool(rdv: Path) -> dict:
                 except queue.Empty:
                     return {k: out.get(k, f"{name}: a rank did not answer within "
                                           f"{POOL_TIMEOUT_S} s")
-                            for k in cases.STORED_CASES + ("gradcheck",)}
+                            for k in cases.POOL_CASES}
                 assert n == name
                 if status == "error":
                     errors.append(f"rank {rank}:\n{payload}")

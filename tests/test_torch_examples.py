@@ -1,6 +1,8 @@
 """The port's example twins must run: each is executed as a subprocess on
-the CPU (``--device cpu``) at ``tests/test_examples.py``'s sizes, and
-prints the phrases that module asserts of its reference twin."""
+the CPU (``--device cpu``) at ``tests/test_examples.py``'s sizes (the LM
+trainer cut to 2 layers and a 4,096-entry vocabulary, for 4 steps of 2 x 64
+tokens with its restart after 2), and prints the
+phrases that module asserts of its reference twin."""
 import os
 import subprocess
 import sys
@@ -10,10 +12,11 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_example(name: str, env_extra: dict, timeout: int = 300) -> str:
+def run_example(name: str, env_extra: dict, timeout: int = 300, args=()) -> str:
     env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1", **env_extra)
-    r = subprocess.run([sys.executable, os.path.join("examples", name), "--device", "cpu"],
-                       env=env, capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    r = subprocess.run([sys.executable, os.path.join("examples", name), "--device", "cpu",
+                        *args], env=env, capture_output=True, text=True, timeout=timeout,
+                       cwd=ROOT)
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr}"
     return r.stdout
 
@@ -29,16 +32,22 @@ def run_example(name: str, env_extra: dict, timeout: int = 300) -> str:
       "order-preserving pipeline OK")),
     ("torch_moe_sorted_dispatch.py", {},
      ("max |dense − sorted|", "dispatch tensor rows:", "sorted dispatch OK")),
-], ids=["streaming_service", "quickstart", "intersect_warehouse", "moe_sorted_dispatch"])
+    ("torch_train_lm.py", {"TRAIN_LM_LAYERS": "2", "TRAIN_LM_VOCAB": "4096",
+                           "ARGS": "--steps 4 --batch 2 --seq 64"},
+     ("param LM on cpu", "simulated restart", "resumed from step 2", "done: loss went")),
+], ids=["streaming_service", "quickstart", "intersect_warehouse", "moe_sorted_dispatch",
+        "train_lm"])
 def test_example_twin_runs_on_the_cpu(name, env, phrases):
-    out = run_example(name, env)
+    env = dict(env)
+    out = run_example(name, env, args=env.pop("ARGS", "").split())
     for phrase in phrases:
         assert phrase in out, phrase
 
 
 def test_example_twins_import_nothing_of_the_reference():
     for name in ("torch_quickstart.py", "torch_intersect_warehouse.py",
-                 "torch_streaming_service.py", "torch_moe_sorted_dispatch.py"):
+                 "torch_streaming_service.py", "torch_moe_sorted_dispatch.py",
+                 "torch_train_lm.py"):
         with open(os.path.join(ROOT, "examples", name), encoding="utf-8") as f:
             for line in f:
                 words = line.split()
