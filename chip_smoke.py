@@ -188,7 +188,7 @@ with a non-zero exit):
 19. expert parallelism: 4 ranks (``torch.multiprocessing`` processes
    joined over gloo, sharing the card) on meshes of named axes
    (``sharding.make_mesh``): a) qwen3-moe-30b-a3b in bfloat16 at full
-   width cut to 12 of its 48 layers through the ``sorted_ep`` dispatch on
+   width cut to 8 of its 48 layers through the ``sorted_ep`` dispatch on
    data x model (1, 4), each rank drawing the one-process weights and
    keeping its 32 of 128 experts, batch 4, prompt 256, 16 greedy tokens:
    finite logits, the same tokens on every rank, every grouped matmul on
@@ -215,14 +215,15 @@ with a non-zero exit):
    (``distributed.fsdp``: each layer's leaves all-gathered where it runs,
    each gradient reduced to its shard): a) qwen3-moe in bfloat16 at full
    width cut to 4 layers (3.115 G parameters) on (2, 2), ``sorted_ep``
-   through the kernels (every product on ``wgmma``), AdamW, 5 steps of a
+   through the kernels (every product on ``wgmma``), AdamW, 3 steps of a
    global 4 x 512 batch at lr 5e-3: losses equal on every rank and
    falling, each rank's bytes at rest equal to the spec arithmetic, ms a
    step, peak memory, collectives a step by kind and bytes, launches, and
    the H100 roofline's terms (``FlopCounterMode`` plus the grouped
    matmul's products, HBM bytes, the collectives' bytes); c) its
-   parameters and every AdamW moment leaf (the expert weights' cut to
-   layer 0) saved from (2, 2) and restored onto (4, 1) and (1, 4): every
+   parameters and every AdamW moment leaf but the head's (the expert
+   weights' cut to layer 0) saved
+   from (2, 2) and restored onto (4, 1) and (1, 4): every
    rank's shards, checksummed over the mesh, equal the saved leaves bit
    for bit; b) float32 at full width cut to 2 layers, one step, qwen3-moe
    on (2, 2) and (1, 4) and llama3-8b on (2, 2) against one process (loss
@@ -231,7 +232,24 @@ with a non-zero exit):
    state and a doubled gradient on one leaf must fail those bounds), rank
    0's kernel inputs against the plain versions; d) ``launch.train.train(...,
    mesh=)`` on (2, 2), the qwen3-moe smoke config, 8 steps against 4 and a
-   resume: losses and the final checkpoint bit for bit.
+   resume: losses and the final checkpoint bit for bit;
+21. sharded serving and the dry-run, on phase 19's ranks: a) llama3-8b
+   and qwen3-moe-30b-a3b (``sorted_ep``, the kernels) in bfloat16 at full
+   width cut to 4 layers, every leaf sharded on (2, 2), batch 4, prompt
+   256, prefill and 3 greedy decode steps through ``launch.steps`` on the
+   mesh: each rank's cache bytes at rest equal to the spec arithmetic, the
+   tokens alike on every rank, each rank's prefill s, decode ms a token,
+   peak memory and collectives a forward by kind and bytes; b) float32 at
+   full width cut to 2 layers, prompt 32, prefill and 3 teacher-forced
+   steps on the mesh of each cache route (llama3-8b, its vocabulary cut
+   to 16,384, on (2, 2): heads;
+   qwen2-1.5b on (1, 4): sequence; mamba2-2.7b on (2, 2)) against one
+   process on the card, logits within rtol/atol 1e-3, and two mutants of
+   qwen2-1.5b's (rank 1's cache shard zeroed after the prefill; the
+   flash-decoding combine without its max rescale) that must fail it; c)
+   ``launch.dryrun``'s meta run of each rank's step of 20a's and 21a's
+   cells: its bytes at rest and collectives by kind and bytes equal to
+   what the rank measured, its peak beside the measured one.
 
 Every path counts its kernels' launches from zero and fails if one of its
 kernels was never launched.  While a path runs, the script also copies
@@ -3573,7 +3591,7 @@ def training_path(dev, by_path: dict) -> dict:
 
 EP_WORLD = 4
 EP_AXES = ("data", "model")
-EP_SERVE = dict(layers=12, batch=4, prompt_len=256, gen=16)  # a: mesh (1, ranks), bf16
+EP_SERVE = dict(layers=8, batch=4, prompt_len=256, gen=16)  # a: mesh (1, ranks), bf16
 EP_GATE = dict(layers=2, mesh=(2, 2), prompt_len=32, gen=4)  # b: float32, full width
 EP_GRAD = dict(batch=4, seq=16)  # c: one MoE layer, float32, on part a's mesh (E_loc 32)
 EP_RING = dict(seq=8192, d=2048, f=6144)  # d: x sharded by sequence, w replicated
@@ -3657,7 +3675,7 @@ def ep_rank(rank: int, world: int, rdv: str, run_dir: str, backend: str, parts: 
         gc.collect()
         torch.cuda.empty_cache()
 
-    # a) qwen3-moe at full width, cut to 12 of 48 layers, bf16, mesh (1, ranks)
+    # a) qwen3-moe at full width, cut to 8 of 48 layers, bf16, mesh (1, ranks)
     s, gen, b = EP_SERVE["prompt_len"], EP_SERVE["gen"], EP_SERVE["batch"]
     prompts = torch.randint(0, cfg.vocab, (b, s), generator=host)
     cfg_a = dataclasses.replace(cfg, n_layers=EP_SERVE["layers"])
@@ -3857,6 +3875,8 @@ def ep_rank(rank: int, world: int, rdv: str, run_dir: str, backend: str, parts: 
         free()
     if "f" in parts:  # phase 20 on the same ranks
         shard_path_rank(rank, shard_meshes, dev, report)
+    if "g" in parts:  # phase 21 on the same ranks
+        serve_path_rank(rank, shard_meshes, dev, report)
     MP.set_current_mesh(None)
     if rank == 0:  # rank 0's captured inputs against the plain versions, the serve's timed
         before = dict(MAX_ERR)
@@ -3912,7 +3932,7 @@ def ep_path(by_path: dict) -> dict:
             p.unlink()
     run_dir.mkdir(parents=True, exist_ok=True)
     out: dict = {}
-    reports = _spawn_ep(run_dir, EP_WORLD, "gloo", "abcdef")
+    reports = _spawn_ep(run_dir, EP_WORLD, "gloo", "abcdefg")
     out["a"] = _ep_serve_summary(reports)
     log(f"phase 19a, ep serve ok: {json.dumps(out['a'])}")
     for part, path in (("b", "ep fp32 gate"), ("c", "ep grad"), ("d", "ep ring"),
@@ -3926,7 +3946,14 @@ def ep_path(by_path: dict) -> dict:
     for part in "abcd":
         log(f"phase 20{part}, {PHASE20[part]} ok: {json.dumps(out['phase 20'][part])}")
     log(f"phase 20: wall by part and rank {json.dumps(out['phase 20']['wall_s'])}")
-    for path in ("ep serve gloo4", "ep fp32 gate", "ep grad", "sharded train"):
+    out["phase 21"] = _serve_summary(reports)
+    for part in "abc":
+        log(f"phase 21{part}, {PHASE21[part]} ok: {json.dumps(out['phase 21'][part])}")
+    walls = out["phase 21"]["wall_s"]
+    log(f"phase 21: {max(sum(w.values()) for w in walls):.1f} s (the slowest rank; by part "
+        f"and rank {json.dumps(walls)})")
+    for path in ("ep serve gloo4", "ep fp32 gate", "ep grad", "sharded train",
+                 *(f"sharded serve {a}" for a in SHARD_SERVE["archs"])):
         by_path[path] = {k: sum(rep[path]["launches"][k] for rep in reports)
                          for k in reports[0][path]["launches"]}
     for name, err in reports[0].get("max_err", {}).items():
@@ -3951,7 +3978,7 @@ def ep_path(by_path: dict) -> dict:
 # phase 20: parameters, moments and batches sharded by the logical-axis rules
 # ---------------------------------------------------------------------------
 
-SHARD_TRAIN = dict(layers=4, mesh=(2, 2), batch=4, seq=512, steps=5, lr=5e-3)  # a: bf16
+SHARD_TRAIN = dict(layers=4, mesh=(2, 2), batch=4, seq=512, steps=3, lr=5e-3)  # a: bf16
 SHARD_GATE = dict(layers=2, batch=4, seq=64, lr=5e-3)  # b: float32, (2, 2) and (1, 4)
 SHARD_DENSE = dict(arch="llama3-8b", layers=2)  # b: full width, no kernel, on (2, 2)
 SHARD_DRIVER = dict(arch="qwen3-moe-30b-a3b", steps=8, cut=4, batch=8, seq=64)  # d
@@ -3992,7 +4019,7 @@ def _at_rest(cfg, mesh) -> tuple[int, int]:
 def shard_train(rank: int, mesh, dev, report: dict):
     """20a: qwen3-moe in bfloat16 at full width, 4 layers, every leaf and
     moment sharded on (2, 2), ``sorted_ep`` through the kernels, AdamW,
-    5 steps of a global 4 x 512 batch.  Returns the state (20c saves it)."""
+    3 steps of a global 4 x 512 batch.  Returns the state (20c saves it)."""
     import dataclasses
 
     import torch
@@ -4360,13 +4387,15 @@ def _checksums(tree_specs: dict, mesh) -> "object":
 
 
 EXPERT_LEAVES = ("layers/moe/wg", "layers/moe/wi", "layers/moe/wo")  # 20c: their layer 0's moments
+UNSAVED_MOMENTS = ("unembed",)  # 20c saves no moments of the head
 
 
 def _restored_moments(cfg, mesh, state=None) -> tuple[dict, dict]:
     """20c's moments and their placements on ``mesh``: every AdamW moment
-    leaf, the expert weights' cut to layer 0 (their other layers, 14.5 GB,
-    would take ~40 s more through gloo); the moments are ``state``'s shards,
-    or zeros of their shapes to restore into."""
+    leaf, the expert weights' cut to layer 0 and the head's left out (cut
+    for time: their other 17 GB would take ~35 s more through gloo; the
+    weights themselves are all saved and restored); the moments are
+    ``state``'s shards, or zeros of their shapes to restore into."""
     import torch
 
     from repro_torch.checkpoint.manager import Placement
@@ -4376,6 +4405,8 @@ def _restored_moments(cfg, mesh, state=None) -> tuple[dict, dict]:
     placed, moments = {}, {}
     for key, p in ST.moment_placements(cfg, mesh, "adamw").items():
         f, k = key.split("/", 1)
+        if k in UNSAVED_MOMENTS:
+            continue
         cut = k in EXPERT_LEAVES
         placed[key] = Placement(p.spec, (1, *p.shape[1:]) if cut else p.shape)
         if state is None:
@@ -4388,8 +4419,8 @@ def _restored_moments(cfg, mesh, state=None) -> tuple[dict, dict]:
 
 
 def shard_restore(rank: int, state, meshes: dict, dev, report: dict) -> None:
-    """20c: 20a's parameters and AdamW moments (the expert weights' for
-    layer 0) saved from (2, 2) (gathered on every rank, rank 0 writes the
+    """20c: 20a's parameters and AdamW moments (the expert weights' of
+    layer 0, none of the head's) saved from (2, 2) (gathered on every rank, rank 0 writes the
     one-process format), then restored on (4, 1) and (1, 4): each rank's
     shards, checksummed over the mesh, equal the saved leaves bit for bit."""
     import dataclasses
@@ -4548,6 +4579,349 @@ def _shard_summary(reports: list[dict]) -> dict:
         c=[rep["sharded restore"] for rep in reports],
         d=reports[0]["sharded driver"],
         wall_s=[rep["phase 20 wall_s"] for rep in reports])
+
+
+# ---------------------------------------------------------------------------
+# phase 21: sharded serving on the data x model mesh, and the dry-run against it
+# ---------------------------------------------------------------------------
+
+SHARD_SERVE = dict(archs=("llama3-8b", "qwen3-moe-30b-a3b"), layers=4, mesh=(2, 2), batch=4,
+                   prompt_len=256, gen=4)  # a: bf16, prefill + 3 decode steps
+SERVE_GATE = dict(layers=2, batch=4, prompt_len=32, gen=4)  # b: float32, full width
+SERVE_GATES = {"llama3-8b": (2, 2), "qwen2-1.5b": (1, 4), "mamba2-2.7b": (2, 2)}  # b: heads,
+# sequence (flash-decoding), Mamba's channels and heads
+SERVE_GATE_VOCAB = {"llama3-8b": 16384}  # b: its vocabulary cut from 128,256 (for time: the
+# float32 embedding and head, 4.2 GB, were gathered through gloo at every forward)
+SERVE_MUTANT = "qwen2-1.5b"  # b: its zeroed cache shard and its combine without the rescale
+PHASE21 = {"a": "sharded serve", "b": "sharded serve fp32 gate", "c": "dry-run against the card"}
+
+
+def _serve_cfg(arch: str, **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), mesh_axes=EP_AXES, **changes)
+
+
+def _cache_bytes(caches) -> int:
+    from repro_torch.launch.dryrun import _flat
+
+    return sum(t.numel() * t.element_size() for k, t in _flat(caches).items()
+               if not k.endswith("index"))
+
+
+def serve_steps(model, cfg, mesh, prompts, max_len: int, backend: str, *, force=None,
+                steps: int = 0, after_prefill=None):
+    """The prefill and decode steps of ``launch.steps`` on ``mesh`` (each
+    rank given the global batch), teacher-forced with ``force`` (B, steps) or
+    greedy for ``steps``, the prefill and the decode steps each timed to a
+    sync, with the collectives of the prefill and of a decode step.
+    Returns the whole logits (B, 1 + steps, V) float32 on the host, the
+    greedy ids (B, 1 + steps), the caches and a record.
+    ``after_prefill(caches)``: called on the rank's caches after the
+    prefill (a mutation)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps as ST
+
+    dev = mesh.device
+    steps = steps if force is None else force.shape[1]
+    prefill = ST.make_prefill_step(cfg, max_len, backend=backend, mesh=mesh)
+    decode = ST.make_serve_step(cfg, backend=backend, mesh=mesh)
+    counts = dict(sharding.COLLECTIVES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, {"tokens": prompts.to(dev)})
+    kept = [logits[:, -1].float().cpu()]  # a sync
+    prefill_s = time.perf_counter() - t0
+    pre = {k: sharding.COLLECTIVES[k] - counts[k] for k in sharding.COLLECTIVES}
+    if after_prefill is not None:
+        after_prefill(caches)
+    at_rest = _cache_bytes(caches)
+    counts = dict(sharding.COLLECTIVES)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = kept[-1].argmax(-1)[:, None] if force is None else force[:, i:i + 1]
+        logits, caches = decode(model, {"token": tok.to(dev), "caches": caches})
+        kept.append(logits[:, -1].float().cpu())
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(1, steps)
+    per_step = {k: (sharding.COLLECTIVES[k] - counts[k]) / max(1, steps)
+                for k in sharding.COLLECTIVES}
+    logits = torch.stack(kept, 1)
+    return logits.numpy(), logits.argmax(-1).numpy(), caches, dict(
+        prefill_s=prefill_s, decode_ms_per_token=decode_ms, cache_bytes_at_rest=at_rest,
+        collectives_prefill=pre, collectives_per_decode_step=per_step)
+
+
+def serve_shard(rank: int, mesh, dev, report: dict) -> None:
+    """21a: llama3-8b and qwen3-moe-30b-a3b (``sorted_ep``) in bfloat16 at
+    full width cut to 4 layers, every leaf sharded on (2, 2), batch 4,
+    prompt 256, prefill and 3 greedy decode steps through the kernels: each
+    rank's cache bytes at rest equal the spec arithmetic, the logits are
+    finite and the tokens alike on every rank."""
+    import torch
+
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.distributed import moe_parallel as MP
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.dryrun import _flat
+    from repro_torch.launch.serve import cache_len
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    p = SHARD_SERVE
+    host = torch.Generator().manual_seed(SEED + 21)
+    for arch in p["archs"]:
+        cfg = _serve_cfg(arch, n_layers=p["layers"])
+        ep = M._ep_layout(cfg, mesh)
+        MP.set_current_mesh(mesh if ep else None)
+        model = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh,
+                       sharded=True)
+        prompts = torch.randint(0, cfg.vocab, (p["batch"], p["prompt_len"]), generator=host)
+        max_len = cache_len(cfg, p["prompt_len"] + p["gen"])
+        path = f"sharded serve {arch}"
+
+        def run():
+            logits, tokens, caches, info = serve_steps(model, cfg, mesh, prompts, max_len,
+                                                       "cuda", steps=p["gen"] - 1)
+            if not np.isfinite(logits).all():
+                raise SystemExit(f"FAIL {path} rank {rank}: non-finite logits")
+            return (tokens, caches), info
+
+        tokens, caches = _mesh_part(report, path, rank, mesh.sub(EP_AXES),
+                                    EP_KERNELS if ep else (), run)
+        info = report[path]
+        glob = _flat(M.init_cache(cfg, p["batch"], max_len, device="meta"))
+        specs = _flat(sharding.cache_specs(cfg, mesh))
+        want = sum(FS.shard_bytes({k: tuple(t.shape)}, specs, mesh, t.element_size())
+                   for k, t in glob.items() if not k.endswith("index"))
+        if info["cache_bytes_at_rest"] != want or _cache_bytes(caches) != want:
+            raise SystemExit(f"FAIL {path} rank {rank}: cache bytes at rest "
+                             f"{info['cache_bytes_at_rest']}, the specs' {want}")
+        if ep:
+            launches, gen = info["launches"], p["gen"]
+            expect = {"grouped_matmul": 3 * cfg.n_layers * gen, "grouped_matmul_simt": 0,
+                      "argsort": cfg.n_layers * gen}
+            if any(launches[k] != v for k, v in expect.items()):
+                raise SystemExit(f"FAIL {path} rank {rank}: launches {launches}, "
+                                 f"expected {expect}")
+        info.update(tokens=tokens.tolist(), layers=cfg.n_layers, max_len=max_len,
+                    cache_spec_bytes=want, split=L.kv_split(cfg, mesh),
+                    param_bytes_at_rest=sum(t.numel() * t.element_size()
+                                            for t in model.parameters()))
+        if rank == 0:
+            shown = {k: v for k, v in info.items() if k != "tokens"}
+            log(f"phase 21a rank 0, {path}: {json.dumps(shown)}")
+        del model, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+    MP.set_current_mesh(None)
+
+
+def _combine_without_rescale(mesh, m, l, acc):
+    """21b's mutant of ``layers._combine_partials``: the same collectives,
+    each rank's sums added as they are (no ``exp(m_r - m)``)."""
+    from repro_torch.distributed import sharding
+
+    import torch
+
+    sharding.all_reduce(mesh, m, "max")
+    both = sharding.all_reduce(mesh, torch.cat([acc, l[..., None]], -1), "sum")
+    return both[..., :-1] / both[..., -1:].clamp_min(1e-20)
+
+
+def serve_gate(rank: int, meshes: dict, dev, report: dict) -> None:
+    """21b: float32 at full width cut to 2 layers (llama3-8b's vocabulary
+    to ``SERVE_GATE_VOCAB``), teacher-forced (prompt 32, prefill and 3
+    decode steps) on the mesh of each route, against one
+    process on the card from the same draw (rank 0): logits within rtol/atol
+    1e-3.  Two mutations of qwen2-1.5b's sequence split must each fail that
+    bound over the prefill and the first decode step: rank 1's cache shard
+    zeroed after the prefill, and the flash-decoding combine without its
+    max rescale."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.serve import cache_len
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    g = SERVE_GATE
+    host = torch.Generator().manual_seed(SEED + 22)
+    out = {}
+    for arch, shape in SERVE_GATES.items():
+        mesh = meshes[shape]
+        cfg = _serve_cfg(arch, n_layers=g["layers"], dtype="float32")
+        cfg = dataclasses.replace(cfg, vocab=SERVE_GATE_VOCAB.get(arch, cfg.vocab))
+        prompts = torch.randint(0, cfg.vocab, (g["batch"], g["prompt_len"]), generator=host)
+        force = torch.randint(0, cfg.vocab, (g["batch"], g["gen"] - 1), generator=host)
+        max_len = cache_len(cfg, g["prompt_len"] + g["gen"])
+        model = M.init(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh=mesh,
+                       sharded=True)
+        runs = {}
+        kw = dict(force=force)
+        runs["mesh"], _, _, info = serve_steps(model, cfg, mesh, prompts, max_len, "cuda", **kw)
+        if arch == SERVE_MUTANT:
+            def zero_rank1(caches):
+                if mesh.rank == 1:
+                    with torch.inference_mode():  # the caches are inference tensors
+                        for t in (caches["k"], caches["v"]):
+                            t.zero_()
+
+            one_step = dict(force=force[:, :1])  # a mutant's prefill and first decode step
+            runs["zeroed shard"] = serve_steps(model, cfg, mesh, prompts, max_len, "cuda",
+                                               after_prefill=zero_rank1, **one_step)[0]
+            orig = L._combine_partials
+            L._combine_partials = _combine_without_rescale
+            try:
+                runs["no rescale"] = serve_steps(model, cfg, mesh, prompts, max_len, "cuda",
+                                                 **one_step)[0]
+            finally:
+                L._combine_partials = orig
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = dict(mesh=list(shape), vocab=cfg.vocab,
+                   split=L.kv_split(cfg, mesh) if cfg.family != "ssm" else "mamba",
+                   prefill_s=info["prefill_s"],
+                   decode_ms_per_token=info["decode_ms_per_token"])
+        if rank == 0:  # one process on the card, the same draw and tokens
+            plain = dataclasses.replace(cfg, mesh_axes=None)
+            one = M.init(plain, torch.Generator(device=dev).manual_seed(SEED))
+            ref = _one_process_serve(one, plain, prompts, force, max_len)
+            del one
+            gc.collect()
+            torch.cuda.empty_cache()
+            for name, got in runs.items():
+                want_logits = ref[:, :got.shape[1]]
+                diff = float(np.abs(got - want_logits).max())
+                held = bool(np.allclose(got, want_logits, rtol=1e-3, atol=1e-3))
+                rec[f"{name} max_abs_logit_diff"] = diff
+                if held != (name == "mesh"):
+                    want = "the mesh must hold" if name == "mesh" else "a mutant must fail"
+                    raise SystemExit(f"FAIL sharded serve gate {arch} {name}: logits differ "
+                                     f"from one process by {diff} (rtol/atol 1e-3); {want}")
+            rec["max_abs_logit"] = float(np.abs(ref).max())
+        sharding.barrier(meshes[(2, 2)].sub(EP_AXES))
+        out[arch] = rec
+    report["sharded serve fp32 gate"] = out
+
+
+def _one_process_serve(model, cfg, prompts, force, max_len: int):
+    """The prefill and teacher-forced decode steps of one process: logits
+    (B, 1 + steps, V) float32 on the host."""
+    import torch
+
+    from repro_torch.launch import steps as ST
+
+    dev = model.device
+    with torch.inference_mode():
+        logits, caches = ST.make_prefill_step(cfg, max_len, backend="cuda")(
+            model, {"tokens": prompts.to(dev)})
+        kept = [logits[:, -1].float().cpu()]
+        decode = ST.make_serve_step(cfg, backend="cuda")
+        for i in range(force.shape[1]):
+            logits, caches = decode(model, {"token": force[:, i:i + 1].to(dev),
+                                            "caches": caches})
+            kept.append(logits[:, -1].float().cpu())
+    return torch.stack(kept, 1).numpy()
+
+
+def dryrun_against_card(rank: int, meshes: dict, report: dict) -> None:
+    """21c: ``launch.dryrun``'s machinery on the meta device for this rank of
+    the exact cells of 20a (the sharded train step) and 21a (each model's
+    prefill and decode step): its bytes at rest (parameters, moments,
+    caches) and its collectives by kind and bytes equal what this rank
+    measured on the card, exactly; its peak beside the measured
+    ``max_memory_allocated`` (an estimate, not a gate)."""
+    from repro_torch.distributed import moe_parallel as MP
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as ST
+
+    mesh = sharding.meta_mesh(sharding.AbstractMesh.of(SHARD_SERVE["mesh"], EP_AXES),
+                              rank=meshes[SHARD_SERVE["mesh"]].rank)
+    keys = [*sharding.KINDS, *(f"{k}_bytes" for k in sharding.KINDS)]
+    out = {}
+
+    def meta(cfg, name: str, info: dict):
+        ST.SHAPES[name] = info
+        MP.set_current_mesh(mesh)
+        try:
+            fn, at_rest, _ = DR.cell_step(cfg, name, mesh)
+            _, tracker, coll = DR._counted(fn)
+        finally:
+            MP.set_current_mesh(None)
+            del ST.SHAPES[name]
+        return at_rest, tracker, {k: coll[k] for k in keys}
+
+    def held(name: str, got: dict, want: dict, measured_peak: int, peak: int) -> None:
+        if got != want:
+            raise SystemExit(f"FAIL dry-run against the card {name} rank {rank}: meta {got}, "
+                             f"measured {want}")
+        out[name] = dict(want, peak_bytes_meta=peak, max_memory_allocated=measured_peak,
+                         peak_ratio=peak / measured_peak)
+
+    a = report["sharded train"]
+    cfg = _serve_cfg(TRAIN["arch"], n_layers=SHARD_TRAIN["layers"])
+    info = dict(kind="train", seq=SHARD_TRAIN["seq"], batch=SHARD_TRAIN["batch"])
+    at_rest, tracker, coll = meta(cfg, "chip_20a", info)
+    held("sharded train", dict(coll, params=at_rest["params"], moments=at_rest["moments"]),
+         dict({k: a["collectives_per_step"][k] for k in keys}, params=a["param_bytes_at_rest"],
+              moments=a["moment_bytes_at_rest"]),
+         a["max_memory_allocated"], sum(at_rest.values()) + tracker.temp_bytes)
+    p = SHARD_SERVE
+    for arch in p["archs"]:
+        got = report[f"sharded serve {arch}"]
+        cfg = _serve_cfg(arch, n_layers=p["layers"])
+        pre = dict(kind="prefill", seq=p["prompt_len"], batch=p["batch"])
+        at_rest, tracker, coll = meta(cfg, "chip_21a_prefill", pre)
+        held(f"{arch} prefill", dict(coll, params=at_rest["params"]),
+             dict({k: got["collectives_prefill"][k] for k in keys},
+                  params=got["param_bytes_at_rest"]),
+             got["max_memory_allocated"], sum(at_rest.values()) + tracker.temp_bytes)
+        dec = dict(kind="decode", seq=got["max_len"], batch=p["batch"])
+        at_rest, tracker, coll = meta(cfg, "chip_21a_decode", dec)
+        held(f"{arch} decode", dict(coll, params=at_rest["params"], caches=at_rest["caches"]),
+             dict({k: got["collectives_per_decode_step"][k] for k in keys},
+                  params=got["param_bytes_at_rest"], caches=got["cache_bytes_at_rest"]),
+             got["max_memory_allocated"], sum(at_rest.values()) + tracker.temp_bytes)
+    report["dry-run against the card"] = out
+
+
+def serve_path_rank(rank: int, meshes: dict, dev, report: dict) -> None:
+    """Phase 21 on this rank: parts a-c, each rank's wall by part."""
+    walls = {}
+    for part, fn in (("a", lambda: serve_shard(rank, meshes[SHARD_SERVE["mesh"]], dev, report)),
+                     ("b", lambda: serve_gate(rank, meshes, dev, report)),
+                     ("c", lambda: dryrun_against_card(rank, meshes, report))):
+        t0 = time.perf_counter()
+        fn()
+        walls[part] = time.perf_counter() - t0
+    report["phase 21 wall_s"] = walls
+
+
+def _serve_summary(reports: list[dict]) -> dict:
+    """Phase 21's record from the ranks' reports."""
+    keys = ("wall_s", "prefill_s", "decode_ms_per_token", "max_memory_allocated",
+            "cache_bytes_at_rest", "cache_spec_bytes", "param_bytes_at_rest",
+            "collectives_prefill", "collectives_per_decode_step", "launches", "host_syncs")
+    a = {}
+    for arch in SHARD_SERVE["archs"]:
+        path = f"sharded serve {arch}"
+        _same_on_ranks(f"{path} greedy tokens", [rep[path]["tokens"] for rep in reports])
+        a[arch] = dict(layers=SHARD_SERVE["layers"], dtype="bfloat16",
+                       mesh=list(SHARD_SERVE["mesh"]), batch=SHARD_SERVE["batch"],
+                       prompt_len=SHARD_SERVE["prompt_len"], gen=SHARD_SERVE["gen"],
+                       split=reports[0][path]["split"],
+                       ranks=[{k: rep[path][k] for k in keys} for rep in reports])
+    return dict(a=a, b=reports[0]["sharded serve fp32 gate"],
+                c=[rep["dry-run against the card"] for rep in reports],
+                wall_s=[rep["phase 21 wall_s"] for rep in reports])
 
 
 def kernel_records(by_path: dict) -> list[dict]:

@@ -34,6 +34,7 @@ and keeps the block.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -50,7 +51,8 @@ class Layout:
     """Where every parameter of a sharded model lives: its ``specs`` and
     global ``shapes`` by parameter name, on ``mesh``.  ``ep``: the MoE
     layers run ``sorted_ep`` (their expert dimension stays split over
-    ``"model"``)."""
+    ``"model"``).  ``batch_split``: the data ranks each run their shard of
+    the batch (the default); False while :func:`whole_batch` is open."""
 
     def __init__(self, mesh, axes: dict, shapes: dict, *, ep: bool):
         self.mesh = mesh
@@ -59,6 +61,7 @@ class Layout:
         self.shapes = {n: tuple(s) for n, s in shapes.items()}
         self.ep = ep
         self.dp_axes = tuple(a for a in SH.DATA_AXES if a in mesh.axis_names)
+        self.batch_split = True
         self.prefix: dict[int, str] = {}  # id(module) -> its parameters' name prefix
         self._plans: dict[str, _Plan] = {}
 
@@ -168,12 +171,12 @@ class View:
     block is viewed where it is applied), any other submodule as a view,
     and any other attribute as the module's.  ``gathered`` tells a block
     that its weights' gradients are summed over the data ranks by the
-    gathers; ``dp_mesh`` is the data axes' sub-mesh (the loss's and the
-    load-balance statistics' sums)."""
+    gathers; ``dp_mesh`` is the data axes' sub-mesh where they split the
+    batch (the loss's sums, a ``sorted`` MoE's global batch), else None."""
 
     def __init__(self, module: nn.Module, layout: Layout, prefix: str):
         self.__dict__.update(_module=module, _layout=layout, _prefix=prefix, gathered=True,
-                             dp_mesh=layout.dp)
+                             dp_mesh=layout.dp if layout.batch_split else None)
 
     def __getattr__(self, name: str):
         mod = self.__dict__["_module"]
@@ -208,6 +211,23 @@ def block_view(model):
     """``fn(block) -> block or its view``: what a layer stack applies."""
     layout = getattr(model, "layout", None)
     return None if layout is None else layout.view
+
+
+@contextlib.contextmanager
+def whole_batch(model, whole: bool = True):
+    """While open (with ``whole``), a sharded ``model`` runs on the whole
+    batch on every rank, one that does not divide the data ranks (which
+    ``steps.batch_shardings`` replicates): its views carry no ``dp_mesh``,
+    so no layer sums or gathers the batch over the data ranks."""
+    layout = getattr(model, "layout", None)
+    if layout is None or not whole:
+        yield
+        return
+    before, layout.batch_split = layout.batch_split, False
+    try:
+        yield
+    finally:
+        layout.batch_split = before
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,10 @@ mesh's process group.
   so that both packages can be fed the same shards.
 * :func:`make_mesh` / :class:`NamedMesh` are the model paths' meshes of
   named axes (``("data", "model")``, ``("pod", "data", "model")``), with a
-  1-D sub-mesh (and its process group) for every product of axes.
+  1-D sub-mesh (and its process group) for every product of axes;
+  :func:`meta_mesh` is one rank of a mesh of any size with no process
+  behind it (the dry-run's: collectives of the right shapes on the meta
+  device, counted and not sent).
 * :func:`psum`, :func:`pmean`, :func:`all_gather_tiled`,
   :func:`all_to_all_blocks` and :func:`ppermute` are collectives with a
   gradient, and :func:`replicated_input` / :func:`replicated_output` the
@@ -67,6 +70,7 @@ import torch.distributed as dist
 from repro_torch.core.types import SYNCS
 
 BACKENDS = ("gloo", "nccl")
+META = "meta"  # the backend of a meta_mesh: collectives of the right shapes, nothing sent
 
 # collectives this process took part in: on card tensors (each one, on
 # gloo, also waits for the card's stream: a sync ``SYNCS`` does not see),
@@ -310,6 +314,33 @@ def make_mesh(shape, axes, *, device="cuda", ranks=None) -> NamedMesh | None:
                      subs=subs)
 
 
+def meta_mesh(mesh, rank: int = 0) -> NamedMesh:
+    """Rank ``rank`` of a mesh of any size (an :class:`AbstractMesh`, or
+    ``(shape, axes)``) with no process behind it, for the dry-run: its
+    ``device`` is ``torch.device("meta")`` and every collective on it (or on
+    its sub-meshes) returns a tensor of the shape the ranks' would, counted
+    in ``COLLECTIVES`` by kind and bytes as gloo's, with nothing sent and
+    no value (a ``host_all_reduce`` returns this rank's values)."""
+    if not isinstance(mesh, AbstractMesh):
+        mesh = AbstractMesh.of(*mesh)
+    axes = tuple(mesh.axis_names)
+    shape = tuple(mesh.shape[a] for a in axes)
+    coords = np.unravel_index(rank, shape)
+    dev = torch.device("meta")
+    subs = {}
+    for n_axes in range(len(axes) + 1):
+        for named in itertools.combinations(range(len(axes)), n_axes):
+            sub_shape = tuple(shape[i] for i in named)
+            key = tuple(axes[i] for i in named)
+            sub_rank = (int(np.ravel_multi_index([coords[i] for i in named], sub_shape))
+                        if named else 0)
+            subs[key] = Mesh(axis="+".join(key), world=math.prod(sub_shape), rank=sub_rank,
+                             device=dev, backend=META)
+    return NamedMesh(axis_names=axes, shape=dict(zip(axes, shape)),
+                     coords={a: int(c) for a, c in zip(axes, coords)}, rank=rank,
+                     world=math.prod(shape), device=dev, backend=META, subs=subs)
+
+
 def resolve_mesh_axis(mesh: Mesh, mesh_axis: str | None) -> str:
     """The mesh axis the pipeline shards over (default: the mesh's)."""
     if mesh_axis is None:
@@ -353,8 +384,10 @@ def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     if mesh.world == 1:
         return t[None].clone()
     src = t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(mesh.world)]
     _count(src, "all_gather", mesh.world)
+    if mesh.backend == META:
+        return src.new_empty((mesh.world,) + tuple(src.shape))
+    parts = [torch.empty_like(src) for _ in range(mesh.world)]
     dist.all_gather(parts, src, group=mesh.group)
     return torch.stack(parts)
 
@@ -367,7 +400,8 @@ def all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     src = t.contiguous()
     out = torch.empty_like(src)
     _count(src, "all_to_all")
-    dist.all_to_all_single(out, src, group=mesh.group)
+    if mesh.backend != META:
+        dist.all_to_all_single(out, src, group=mesh.group)
     return out
 
 
@@ -379,7 +413,8 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, op: str) -> torch.Tensor:
         return t.clone()
     buf = t.clone()
     _count(buf, "all_reduce")
-    dist.all_reduce(buf, op=red, group=mesh.group)
+    if mesh.backend != META:
+        dist.all_reduce(buf, op=red, group=mesh.group)
     return buf
 
 
@@ -397,7 +432,7 @@ def host_all_reduce(mesh: Mesh, values, op: str) -> list[int]:
 
 
 def barrier(mesh: Mesh) -> None:
-    if mesh.world > 1:
+    if mesh.world > 1 and mesh.backend != META:
         if mesh.backend == "nccl":
             dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
         else:
@@ -420,6 +455,8 @@ def ppermute_start(mesh: Mesh, t: torch.Tensor, shift: int = 1):
     send[(mesh.rank + shift) % mesh.world] = src.numel()
     recv[(mesh.rank - shift) % mesh.world] = src.numel()
     _count(src, "ppermute")
+    if mesh.backend == META:
+        return out.view(t.shape), None
     work = dist.all_to_all_single(out, src, output_split_sizes=recv, input_split_sizes=send,
                                   group=mesh.group, async_op=True)
     return out.view(t.shape), work
@@ -671,6 +708,13 @@ def map_specs(fn, tree):
     return fn(tree)
 
 
+def without_data_axes(spec):
+    """``spec`` with its data-axis entries replicated: a rank's cache is cut
+    over ``"model"`` only, its batch being the rows it is fed."""
+    return tuple(None if e is not None and set(_entry_axes(e)) <= set(DATA_AXES) else e
+                 for e in spec)
+
+
 def _data_entry(mesh):
     dp = tuple(a for a in DATA_AXES if a in mesh.axis_names)
     return dp if len(dp) > 1 else dp[0]
@@ -821,6 +865,8 @@ def assemble(parts: torch.Tensor, spec, mesh, group_axes: tuple) -> torch.Tensor
     sizes = [mesh.shape[a] for a in group_axes]
     ways = [(_ways(mesh, e) if set(_entry_axes(e)) <= set(group_axes) else 1) for e in spec]
     full = parts.new_empty(tuple(n * w for n, w in zip(shard, ways)))
+    if parts.is_meta:  # a meta_mesh's gather: the shape is all there is
+        return full
     for r in range(parts.shape[0]):
         at = dict(zip(group_axes, np.unravel_index(r, sizes)))
         idx = []

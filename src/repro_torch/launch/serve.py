@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.types import resolve_device
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import steps as ST
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -58,18 +60,26 @@ def mrope_positions(batch: int, start: int, length: int, device) -> torch.Tensor
 
 
 def generate(params: M.Model, cfg: ModelConfig, prompts, *, gen: int, max_len: int,
-             backend="auto", force=None, keep_logits=False) -> Generation:
+             backend="auto", force=None, keep_logits=False, mesh=None) -> Generation:
     """Prefill ``prompts`` (B, S) token ids, or a front-end stub's (B, S, D)
     embeddings, and decode ``gen - 1`` more tokens greedily.  ``force`` (B,
     gen - 1 or more): feed these tokens instead of the model's own
     (teacher forcing); the greedy ids are still returned.  An ``mrope``
-    model gets :func:`mrope_positions` at prefill and at every step."""
+    model gets :func:`mrope_positions` at prefill and at every step.
+
+    On a ``mesh`` every rank makes the call with the global prompts (and
+    ``force``) and a model of that mesh (``model.init(..., mesh=,
+    sharded=True)`` or ``params_from_numpy(..., mesh=)``): the steps run
+    each rank's data shard (the whole batch where it does not divide the
+    data ranks), each rank holds its shards of the caches and gets the
+    global batch's logits and greedy ids, alike on every rank; the timings
+    are the rank's own."""
     dev = params.device
     prompts = torch.as_tensor(prompts, device=dev)
     b, s = prompts.shape[:2]
     mrope = cfg.rope == "mrope"
-    prefill = ST.make_prefill_step(cfg, max_len, backend=backend)
-    decode = ST.make_serve_step(cfg, backend=backend)
+    prefill = ST.make_prefill_step(cfg, max_len, backend=backend, mesh=mesh)
+    decode = ST.make_serve_step(cfg, backend=backend, mesh=mesh)
     batch = {"tokens": prompts}
     if mrope:
         batch["mrope_pos"] = mrope_positions(b, 0, s, dev)
@@ -108,11 +118,15 @@ def cache_len(cfg: ModelConfig, positions: int) -> int:
 
 
 def serve(arch: str, *, smoke=True, batch=4, prompt_len=32, gen=16, max_len=None, seed=0,
-          device="cuda"):
+          device="cuda", mesh=None):
     """Random weights from ``seed`` (a generator on ``device``), seeded
     prompts (a host generator; a front-end stub's embedded through a
     seeded N(0, 0.02^2) table of (V, D)), prefill and greedy decode.
-    Returns ``(gen_ids (B, gen), prefill s, decode s per token)``."""
+    Returns ``(gen_ids (B, gen), prefill s, decode s per token)``.  On a
+    ``mesh`` (``sharding.make_mesh`` on every rank, of ``device``'s type)
+    every rank makes the call: the config takes the mesh's axes, every
+    rank draws the one-process model and keeps its shard of each leaf, and
+    :func:`generate` runs on the mesh."""
     cfg = get_config(arch, smoke=smoke)
     dev = resolve_device(device)
     max_len = cache_len(cfg, max_len or (prompt_len + gen))
@@ -120,8 +134,11 @@ def serve(arch: str, *, smoke=True, batch=4, prompt_len=32, gen=16, max_len=None
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=host)
     if cfg.frontend_stub:
         prompts = (torch.randn((cfg.vocab, cfg.d_model), generator=host) * 0.02)[prompts]
-    params = M.init(cfg, torch.Generator(device=dev).manual_seed(seed))
-    out = generate(params, cfg, prompts, gen=gen, max_len=max_len)
+    if mesh is not None:
+        cfg = dataclasses.replace(cfg, mesh_axes=tuple(mesh.axis_names))
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(seed), mesh=mesh,
+                    sharded=mesh is not None)
+    out = generate(params, cfg, prompts, gen=gen, max_len=max_len, mesh=mesh)
     return out.tokens, out.t_prefill, out.t_decode
 
 
@@ -134,13 +151,28 @@ def main():
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="data x model shape, e.g. 2x2: serve on that many ranks, started by "
+                         "a launcher (torchrun: RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); "
+                         "NCCL where each rank has a card, else gloo")
     args = ap.parse_args()
-    ids, tp, td = serve(args.arch, smoke=not args.full, batch=args.batch,
-                        prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
-                        device=args.device)
-    print(f"generated {ids.shape} tokens; prefill {tp*1e3:.1f} ms, "
-          f"decode {td*1e3:.2f} ms/token")
-    print("sample:", ids[0][:12])
+    mesh = None
+    if args.mesh:
+        shape = tuple(int(n) for n in args.mesh.split("x"))
+        own_card = args.device == "cuda" and torch.cuda.device_count() >= math.prod(shape)
+        SH.init_distributed(backend="nccl" if own_card else "gloo")
+        mesh = SH.make_mesh(shape, ("data", "model")[-len(shape):], device=args.device)
+    try:
+        ids, tp, td = serve(args.arch, smoke=not args.full, batch=args.batch,
+                            prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
+                            device=args.device, mesh=mesh)
+    finally:
+        if mesh is not None and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if mesh is None or mesh.rank == 0:
+        print(f"generated {ids.shape} tokens; prefill {tp*1e3:.1f} ms, "
+              f"decode {td*1e3:.2f} ms/token")
+        print("sample:", ids[0][:12])
 
 
 if __name__ == "__main__":

@@ -129,12 +129,25 @@ def _check(st, mesh, keys, payload, domain: int) -> str:
     return "equal"
 
 
+def _ended(kw: dict) -> None:
+    """``run(**kw)`` on this rank, then the process group torn down, on the
+    error path too: gloo's threads must not outlive the interpreter, whose
+    exit would abort the rank."""
+    import torch.distributed as dist
+
+    try:
+        run(**kw)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def _spawned(rank: int, world: int, rdv: str, backend: str, kw: dict) -> None:
     from repro_torch.distributed import sharding
 
     sharding.init_distributed(backend=backend, num_processes=world, process_id=rank,
                               init_method=f"file://{rdv}")
-    run(**kw)
+    _ended(kw)
 
 
 def main(argv=None) -> int:
@@ -163,7 +176,7 @@ def main(argv=None) -> int:
         from repro_torch.distributed import sharding
 
         sharding.init_distributed(backend=args.dist_backend)
-        run(**kw)
+        _ended(kw)
         return 0
     import torch.multiprocessing as mp
 

@@ -11,13 +11,15 @@ passed through as they are), and ``mrope_pos`` (3, B, S) for an ``mrope``
 model.  ``backend`` picks the MoE block's sort and grouped matmul
 (``"auto"``: by device; ``"torch"``: the plain versions; ``"cuda"``: the
 kernels, the grouped matmul's backward included).  On a mesh the steps
-run unchanged on every rank, each fed its data shard of the batch
-(:func:`local_batch`): the serve steps on a ``sorted_ep`` config with
-``mesh_axes`` and a mesh registered by
-``distributed.moe_parallel.set_current_mesh`` (the experts split over
-``"model"``, every other weight whole), the train step of
-``make_train_step(..., mesh=)`` on a model whose every leaf and moment is
-sharded by the logical-axis rules (:mod:`repro_torch.distributed.fsdp`).
+run on every rank: the serve steps of ``make_prefill_step(..., mesh=)``
+and ``make_serve_step(..., mesh=)`` take the global batch and run the
+rank's data shard of it (the whole batch where it does not divide the
+data ranks) on the rank's shards of the caches (``sharding.cache_specs``),
+with a model whose leaves are sharded (``model.init(..., mesh=,
+sharded=True)``) or whole but for a ``sorted_ep`` config's expert slices;
+the train step of ``make_train_step(..., mesh=)`` takes the rank's data
+shard (:func:`local_batch`) and runs a model whose every leaf and moment
+is sharded by the logical-axis rules (:mod:`repro_torch.distributed.fsdp`).
 
 The sharding assembly of a cell is the reference's: :func:`input_specs`
 (the inputs as ``meta`` tensors), :func:`abstract_init` and
@@ -29,6 +31,7 @@ entry).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -180,21 +183,89 @@ def local_batch(batch: dict, mesh) -> dict:
     return out
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int, *, backend="auto"):
+def _fed(mesh, batch: dict) -> tuple[dict, bool]:
+    """A serve step's global ``batch`` as this rank runs it: its data shard
+    (:func:`local_batch`, and True) where the batch divides the data ranks
+    of ``mesh``, else the whole batch (and False), which
+    :func:`batch_shardings` replicates; a decode batch's ``caches`` (the
+    rank's shards) as they are."""
+    if mesh is None:
+        return batch, False
+    dp = mesh.sub(tuple(a for a in SH.DATA_AXES if a in mesh.axis_names))
+    rows = {k: v for k, v in batch.items() if k != "caches"}
+    n = rows["mrope_pos"].shape[1] if "mrope_pos" in rows else next(iter(rows.values())).shape[0]
+    if dp.world == 1 or n % dp.world:
+        return batch, False
+    return dict(local_batch(rows, mesh), **({"caches": batch["caches"]}
+                                            if "caches" in batch else {})), True
+
+
+def _serving(model, mesh, split: bool):
+    """A serve step's context on a mesh: inference (no rank may wait on a
+    backward collective), and a sharded model told whether the data ranks
+    split the batch (:func:`fsdp.whole_batch`)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.inference_mode())
+    stack.enter_context(FS.whole_batch(model, not split))
+    return stack
+
+
+def _whole(mesh, split: bool, logits: torch.Tensor) -> torch.Tensor:
+    """The global batch's logits on every rank, as the reference's
+    replicated output: the data ranks' rows all-gathered where they split
+    the batch."""
+    if not split:
+        return logits
+    dp = mesh.sub(tuple(a for a in SH.DATA_AXES if a in mesh.axis_names))
+    return SH.all_gather(dp, logits).flatten(0, 1)
+
+
+def _register(cfg: ModelConfig, mesh) -> None:
+    if mesh is not None and M._ep_layout(cfg, mesh):
+        MP.set_current_mesh(mesh)
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, *, backend="auto", mesh=None):
+    """``prefill(params, batch) -> (logits (B, 1, V), caches)``.  On a
+    ``mesh`` every rank makes the same call and runs every step with the
+    global batch: each runs its data shard (:func:`local_batch`), or the
+    whole batch where it does not divide the data ranks (which
+    :func:`batch_shardings` replicates); the caches come back as the rank's
+    shards on ``sharding.cache_specs`` (``model.init_cache(..., mesh=)``)
+    and the logits whole, the global batch's, on every rank.  A
+    ``sorted_ep`` config registers the mesh for its MoE layers."""
+    _register(cfg, mesh)
+
     def prefill(params: M.Model, batch):
+        batch, split = _fed(mesh, batch)
         tokens = batch["tokens"]
-        caches = M.init_cache(cfg, tokens.shape[0], max_len, device=params.device)
-        logits, new_caches, _ = M.forward(params, cfg, tokens, caches=caches,
-                                          mrope_pos=batch.get("mrope_pos"), backend=backend)
-        return logits[:, -1:], new_caches
+        with _serving(params, mesh, split):
+            caches = M.init_cache(cfg, tokens.shape[0], max_len, device=params.device,
+                                  mesh=mesh)
+            logits, new_caches, _ = M.forward(params, cfg, tokens, caches=caches,
+                                              mrope_pos=batch.get("mrope_pos"),
+                                              backend=backend, mesh=mesh)
+            return _whole(mesh, split, logits[:, -1:]), new_caches
 
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig, *, backend="auto"):
+def make_serve_step(cfg: ModelConfig, *, backend="auto", mesh=None):
+    """``serve_step(params, batch) -> (logits (B, 1, V), caches)``: one token
+    against the caches; on a ``mesh`` as :func:`make_prefill_step`'s (the
+    global batch's ``token``, the caches the rank's shards as the prefill
+    returned them)."""
+    _register(cfg, mesh)
+
     def serve_step(params: M.Model, batch):
-        return M.decode_step(params, cfg, batch["token"], batch["caches"],
-                             mrope_pos=batch.get("mrope_pos"), backend=backend)
+        batch, split = _fed(mesh, batch)
+        with _serving(params, mesh, split):
+            logits, caches = M.decode_step(params, cfg, batch["token"], batch["caches"],
+                                           mrope_pos=batch.get("mrope_pos"), backend=backend,
+                                           mesh=mesh)
+            return _whole(mesh, split, logits), caches
 
     return serve_step
 

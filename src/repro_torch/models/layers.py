@@ -17,6 +17,24 @@ gradients, for serving; ``model.trainable`` switches a model's on for
 training.  With gradients on, the chunked attention rematerializes each
 query chunk in the backward pass, as the reference's ``jax.checkpoint`` of
 its ``q_step``.
+
+On a mesh of ranks (``mesh=``, a ``sharding.NamedMesh`` with a ``"model"``
+axis) a layer's decode cache is the rank's shard under
+``sharding.cache_specs`` (``model.init_cache(..., mesh=)``):
+
+* GQA K/V split by heads (where ``n_kv_heads * kv_dup`` divides the
+  ``"model"`` ranks): the rank computes attention for the query heads that
+  read its KV heads, and the heads' outputs are all-gathered over
+  ``"model"`` before ``wo``;
+* GQA K/V split by sequence (elsewhere): flash-decoding.  A new row is
+  written only on the rank that owns its position; each rank computes the
+  unnormalised softmax over its positions (its slice's causal offset; an
+  empty or zero-padded slice weighs nothing), then one all-reduce (max) of
+  the row maxima and one all-reduce (sum) of the rescaled sums and outputs
+  (:func:`_combine_partials`);
+* MLA's latent split by channels and its rotated key by sequence: the
+  rank writes its slice of the new rows, and the layer's shards are
+  all-gathered over ``"model"`` where it runs.
 """
 from __future__ import annotations
 
@@ -28,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.config import ModelConfig
 
 
@@ -220,6 +239,72 @@ def _attn_chunked(q, k, v, *, causal: bool, q_offset: int, chunk_q: int, chunk_k
     return torch.cat(outs, 1)
 
 
+def _partial_softmax(q, k, v, q0: int, k0: int, ck: int):
+    """Unnormalised attention of q (B, Sq, H, D), at positions ``q0`` ..,
+    over k, v (B, Sk, H, D) at positions ``k0`` .. (causal): ``(m, l, acc)``
+    in float32, the row maxima (B, H, Sq), the sums of ``exp(s - m)`` and
+    the weighted values (B, H, Sq, D).  A row whose keys are all masked
+    keeps ``m = -inf`` and zero ``l`` and ``acc`` (no NaN)."""
+    b, sq, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    q_pos = q0 + torch.arange(sq, device=dev)
+    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    for lo in range(0, k.shape[1], ck):
+        kblk, vblk = k[:, lo:lo + ck], v[:, lo:lo + ck]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kblk).to(torch.float32) * scale
+        k_pos = k0 + lo + torch.arange(kblk.shape[1], device=dev)
+        s = torch.where((q_pos[:, None] >= k_pos[None, :])[None, None], s, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        alpha = torch.exp(m - m_safe)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vblk.to(torch.float32))
+        m = m_new
+    return m, l, acc
+
+
+def _combine_partials(mesh, m, l, acc):
+    """Flash-decoding's combine over the ranks of ``mesh`` (each holding a
+    slice of the positions): the global row maxima by an all-reduce (max),
+    each rank's sums and outputs rescaled by ``exp(m_r - m)`` (zero for a
+    rank whose slice held no visible key) and summed by one all-reduce.
+    Returns the normalised output (B, H, Sq, D) float32."""
+    g = SH.all_reduce(mesh, m, "max")
+    scale = torch.where(torch.isfinite(m), torch.exp(m - torch.where(torch.isfinite(g), g, 0.0)),
+                        0.0)
+    both = torch.cat([acc * scale[..., None], (l * scale)[..., None]], -1)
+    both = SH.all_reduce(mesh, both, "sum")
+    return both[..., :-1] / torch.clamp_min(both[..., -1:], 1e-20)
+
+
+def _tp(mesh):
+    """The ``"model"`` sub-mesh of ``mesh`` where it splits a cache (more than
+    one rank), else None."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return mesh.sub("model")
+
+
+def kv_split(cfg: ModelConfig, mesh) -> str | None:
+    """How ``sharding.cache_specs`` splits a GQA cache over ``"model"`` on
+    ``mesh``: ``"heads"``, ``"seq"``, or None (one model rank)."""
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    return "heads" if (cfg.n_kv_heads * cfg.kv_dup) % mesh.shape["model"] == 0 else "seq"
+
+
+def _write_owned(buf: torch.Tensor, idx: int, rows: torch.Tensor, lo: int) -> None:
+    """Write ``rows`` (B, S, ...), positions ``idx`` .., into ``buf`` (B, Sb,
+    ...), this rank's positions ``lo`` .. ``lo + Sb``: only the rows it owns."""
+    a, b = max(idx, lo), min(idx + rows.shape[1], lo + buf.shape[1])
+    if a < b:
+        buf[:, a - lo:b - lo] = rows[:, a - idx:b - idx].to(buf.dtype)
+
+
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return x
@@ -253,26 +338,21 @@ class Attention(nn.Module):
 
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
-              cache: dict | None = None, mrope_pos: torch.Tensor | None = None):
+              cache: dict | None = None, mrope_pos: torch.Tensor | None = None, mesh=None):
     """x (B, S, D).  ``cache``: None, or one layer's ``{"k", "v", "index"}``
     (k/v ``(B, Smax, KH, Dh)``, ``index`` the tokens already cached, a host
     integer).  The new K/V rows are written into the cache's tensors in
     place; returns ``(out, new_cache)`` with the advanced index.  An
     ``mrope`` model rotates q and k by ``mrope_pos`` (3, B, S), and, as the
-    reference, not at all when it is None."""
+    reference, not at all when it is None.  On a ``mesh`` the cache is the
+    rank's shard (module docstring)."""
     b, sq, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = dense(p.wq, x).reshape(b, sq, h, dh)
     k = dense(p.wk, x).reshape(b, sq, kh, dh)
     v = dense(p.wv, x).reshape(b, sq, kh, dh)
-    if cfg.rope == "mrope":
-        if mrope_pos is not None:
-            sec = mrope_sections(dh)
-            q = apply_mrope(q, mrope_pos, cfg.rope_theta, sections=sec)
-            k = apply_mrope(k, mrope_pos, cfg.rope_theta, sections=sec)
-    elif cfg.rope == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q = _rotated(cfg, q, positions, mrope_pos)
+    k = _rotated(cfg, k, positions, mrope_pos)
     if cache is None:
         out = _attn_chunked(q, repeat_kv(k, h // kh), repeat_kv(v, h // kh), causal=cfg.causal,
                             q_offset=0, chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
@@ -281,13 +361,57 @@ def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, positions: torch.
     ck, cv = cache["k"], cache["v"]
     if cfg.kv_dup > 1:  # store duplicated kv heads, as the reference does
         k, v = repeat_kv(k, cfg.kv_dup), repeat_kv(v, cfg.kv_dup)
+    split, tp = kv_split(cfg, mesh), _tp(mesh)
+    if split == "seq":
+        return _attention_seq(p, cfg, q, k, v, cache, tp)
+    n_rep = h // (kh * cfg.kv_dup)
+    if split == "heads":  # this rank's stored heads and the query heads that read them
+        per = ck.shape[2]
+        mine = slice(tp.rank * per, (tp.rank + 1) * per)
+        q = q[:, :, tp.rank * per * n_rep:(tp.rank + 1) * per * n_rep]
+        k, v = k[:, :, mine], v[:, :, mine]
     _write_rows(ck, idx, k)
     _write_rows(cv, idx, v)
-    n_rep = h // (kh * cfg.kv_dup)
     # positions past idx + sq hold zeros and are masked by the causal offset
     out = _attn_chunked(q, repeat_kv(ck.to(q.dtype), n_rep), repeat_kv(cv.to(q.dtype), n_rep),
                         causal=True, q_offset=idx, chunk_q=min(cfg.attn_chunk_q, sq),
                         chunk_k=cfg.attn_chunk_k)
+    if split == "heads":
+        out = SH.all_gather_tiled(tp, out, dim=2)  # (B, S, H, Dh): every head, in order
+    new_cache = {"k": ck, "v": cv, "index": cache["index"] + sq}
+    return dense(p.wo, out.reshape(b, sq, h * dh)), new_cache
+
+
+def _rotated(cfg: ModelConfig, t: torch.Tensor, positions, mrope_pos) -> torch.Tensor:
+    """q or k (B, S, H, Dh) rotated by the config's RoPE (an ``mrope`` model
+    by ``mrope_pos``, and not at all when it is None, as the reference)."""
+    if cfg.rope == "mrope":
+        if mrope_pos is None:
+            return t
+        return apply_mrope(t, mrope_pos, cfg.rope_theta, sections=mrope_sections(t.shape[-1]))
+    if cfg.rope == "rope":
+        return apply_rope(t, positions, cfg.rope_theta)
+    return t
+
+
+def _attention_seq(p: Attention, cfg: ModelConfig, q, k, v, cache: dict, tp) -> tuple:
+    """The sequence-split cache (flash-decoding): this rank's positions
+    ``rank * Sb`` .. of ``(B, Sb, KH * kv_dup, Dh)``; q, k, v already rotated
+    (k, v duplicated ``kv_dup`` times)."""
+    b, sq, h, dh = q.shape
+    idx = int(cache["index"])
+    ck, cv = cache["k"], cache["v"]
+    sb = ck.shape[1]
+    if idx + sq > sb * tp.world:
+        raise ValueError(f"cache of {sb * tp.world} positions cannot take {sq} more after {idx}")
+    lo = tp.rank * sb
+    _write_owned(ck, idx, k, lo)
+    _write_owned(cv, idx, v, lo)
+    n_rep = h // ck.shape[2]
+    m, l, acc = _partial_softmax(q, repeat_kv(ck.to(q.dtype), n_rep),
+                                 repeat_kv(cv.to(q.dtype), n_rep), idx, lo,
+                                 min(cfg.attn_chunk_k, sb))
+    out = _combine_partials(tp, m, l, acc).transpose(1, 2).to(q.dtype)  # (B, S, H, Dh)
     new_cache = {"k": ck, "v": cv, "index": cache["index"] + sq}
     return dense(p.wo, out.reshape(b, sq, h * dh)), new_cache
 
@@ -320,13 +444,15 @@ class MLA(nn.Module):
 
 
 def mla_attention(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                  cache: dict | None = None):
+                  cache: dict | None = None, mesh=None):
     """DeepSeek-V3 MLA, the reference's math (no absorbed projections).
     ``cache``: None, or one layer's ``{"latent" (B, Smax, kv_lora), "k_rope"
     (B, Smax, rope), "index"}``: the compressed latent and the rotated key
     part, written in place.  Every call expands the whole latent through
     ``wkv_b`` into K and V, pads V to the qk width for the chunked softmax
-    and slices it after.  Returns ``(out, new_cache)``."""
+    and slices it after.  Returns ``(out, new_cache)``.  On a ``mesh`` the
+    cache is the rank's shard: the latent's channels and the rotated key's
+    positions (module docstring)."""
     m = cfg.mla
     b, sq, _ = x.shape
     h = cfg.n_heads
@@ -342,9 +468,13 @@ def mla_attention(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
     if cache is not None:
         q_offset = int(cache["index"])
         lat, kr = cache["latent"], cache["k_rope"]
-        _write_rows(lat, q_offset, latent)
-        _write_rows(kr, q_offset, k_rope[:, :, 0])
         new_cache = {"latent": lat, "k_rope": kr, "index": cache["index"] + sq}
+        tp = _tp(mesh)
+        if tp is not None:
+            lat, kr = _mla_write_gather(lat, kr, q_offset, latent, k_rope[:, :, 0], tp)
+        else:
+            _write_rows(lat, q_offset, latent)
+            _write_rows(kr, q_offset, k_rope[:, :, 0])
         latent, k_rope = lat.to(x.dtype), kr[:, :, None].to(x.dtype)
     kv = dense(p.wkv_b, latent).reshape(b, -1, h, nope + dv)
     sk = kv.shape[1]
@@ -354,6 +484,27 @@ def mla_attention(p: MLA, cfg: ModelConfig, x: torch.Tensor, positions: torch.Te
                         q_offset=q_offset, chunk_q=min(cfg.attn_chunk_q, sq),
                         chunk_k=cfg.attn_chunk_k)[..., :dv]
     return dense(p.wo, out.reshape(b, sq, h * dv)), new_cache
+
+
+def _mla_write_gather(lat, kr, idx: int, latent, k_rope, tp):
+    """MLA's sharded cache: write this rank's channels of the new latent
+    rows and its positions of the new rotated-key rows into its shards,
+    then the layer's whole cache, all-gathered over ``"model"`` (trimmed
+    of the shards' zero padding): ``(latent (B, Smax, kv_lora), k_rope
+    (B, Smax, rope))``."""
+    c = latent.shape[-1]
+    cb = lat.shape[-1]
+    lo = min(tp.rank * cb, c)
+    hi = min(lo + cb, c)
+    _write_rows(lat[..., :hi - lo], idx, latent[..., lo:hi])
+    smax = lat.shape[1]
+    if idx + latent.shape[1] > smax:
+        raise ValueError(f"cache of {smax} positions cannot take {latent.shape[1]} more after "
+                         f"{idx}")
+    _write_owned(kr, idx, k_rope, tp.rank * kr.shape[1])
+    whole_lat = SH.all_gather_tiled(tp, lat, dim=2)[..., :c]
+    whole_kr = SH.all_gather_tiled(tp, kr, dim=1)[:, :smax]
+    return whole_lat, whole_kr
 
 
 # ---------------------------------------------------------------------------

@@ -388,7 +388,8 @@ def _cache_index(caches) -> int:
     return 0 if leaf is None else int(leaf.reshape(-1)[0])
 
 
-def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, backend, full):
+def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, backend, full,
+                   mesh=None):
     """Groups of ``period`` Mamba layers, each followed by the shared block
     on ``shared_in(concat(x, x0)) + concat(x, x0) @ lora_a[g] @ lora_b[g]``
     added to x.  ``caches``: None or ``(mamba caches (L, ...), attention
@@ -402,7 +403,7 @@ def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, b
         rows = slice(g * period, (g + 1) * period)
         grp = None if m_caches is None else {k: v[rows] for k, v in m_caches.items()}
         x, nc, a = T.apply_stack(p.layers[rows], cfg, x, positions, caches=grp,
-                                 dispatch=dispatch, backend=backend, full=full)
+                                 dispatch=dispatch, backend=backend, full=full, mesh=mesh)
         aux = aux + a
         new_m.append(nc)
         a_cache = None if a_caches is None else T.layer_cache(a_caches, g)
@@ -410,7 +411,7 @@ def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, b
         def shared_fn(xx, x00, g=g, cache=a_cache):
             cat = torch.cat([xx, x00], -1)
             h = L.dense(p.shared_in, cat) + (cat @ p.lora_a[g]) @ p.lora_b[g]
-            return T.apply_block(p.shared, cfg, h, positions, cache=cache)
+            return T.apply_block(p.shared, cfg, h, positions, cache=cache, mesh=mesh)
 
         if T.remat_on(cfg, x, p.shared, caches):  # the shared blocks' activations dominate
             h, a2 = T.rematerialized(lambda xx, x00, fn=shared_fn: fn(xx, x00)[::2], x, x0)
@@ -428,7 +429,7 @@ def _hybrid_stacks(p: Model, cfg: ModelConfig, x, positions, caches, dispatch, b
 
 
 def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
-            mrope_pos=None, dispatch=None, backend="auto"):
+            mrope_pos=None, dispatch=None, backend="auto", mesh=None):
     """tokens (B, S) int, or (B, S, D) embeddings for a front-end stub →
     ``(logits (B, S, V), new_caches, aux_loss)`` on the model's device.
     With ``caches``, positions continue from the caches' index; attention
@@ -438,7 +439,10 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
     None)`` without caches), as the reference's.  A sharded model
     (``init(..., sharded=True)``) runs on its rank's data shard, each
     layer's weights gathered where it runs
-    (:mod:`repro_torch.distributed.fsdp`)."""
+    (:mod:`repro_torch.distributed.fsdp`).  On a ``mesh`` the caches are
+    the rank's shards (:func:`init_cache` with ``mesh=``), each layer's
+    attention or Mamba mixer run on them as ``models.layers`` and
+    ``models.ssm`` say."""
     p = FS.full_view(p)
     full = FS.block_view(p)
     x = _embed_in(p, cfg, tokens)
@@ -451,18 +455,18 @@ def forward(p: Model, cfg: ModelConfig, tokens, *, positions=None, caches=None,
         mrope_pos = torch.as_tensor(mrope_pos, device=p.device)
     if cfg.family == "hybrid":
         x, new_caches, aux = _hybrid_stacks(p, cfg, x, positions, caches, dispatch, backend,
-                                            full)
+                                            full, mesh)
     elif p.dense_layers is not None:
         dc, mc = (None, None) if caches is None else caches
         x, ndc, a1 = T.apply_stack(p.dense_layers, cfg, x, positions, caches=dc,
-                                   mrope_pos=mrope_pos, full=full)
+                                   mrope_pos=mrope_pos, full=full, mesh=mesh)
         x, nmc, a2 = T.apply_stack(p.layers, cfg, x, positions, caches=mc,
-                                   dispatch=dispatch, backend=backend, full=full)
+                                   dispatch=dispatch, backend=backend, full=full, mesh=mesh)
         new_caches, aux = (ndc, nmc), a1 + a2
     else:
         x, new_caches, aux = T.apply_stack(p.layers, cfg, x, positions, caches=caches,
                                            mrope_pos=mrope_pos, dispatch=dispatch,
-                                           backend=backend, full=full)
+                                           backend=backend, full=full, mesh=mesh)
     return _head(p, cfg, x), new_caches, aux
 
 
@@ -536,7 +540,7 @@ def _mtp_loss(p: Model, cfg: ModelConfig, tokens, labels, dp=None) -> torch.Tens
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               device="cuda"):
+               device="cuda", mesh=None):
     """Decode caches stacked over layers, the reference's layout per family,
     in ``dtype`` (bfloat16 by default, whatever the model's dtype) on
     ``device``, each ``index`` (n,) int32 on the host, so that reading it
@@ -550,10 +554,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     * ``ssm``: Mamba's over all layers; ``hybrid``: (Mamba's over all
       layers, attention's over the groups); a dense-prefix MoE stack:
       (attention's over the dense layers, attention's over the MoE ones);
-      else attention's over all layers."""
-    dev = resolve_device(device)
+      else attention's over all layers.
 
-    def attn_cache(n: int) -> dict:
+    On a ``mesh`` (a ``sharding.NamedMesh`` with a ``"model"`` axis, or a
+    ``sharding.meta_mesh``) only the rank's shard of each field is
+    allocated, its ``"model"`` split by ``sharding.cache_specs`` in GSPMD's
+    layout (``ceil(n / ranks)`` a block, the last ones zero-padded);
+    ``batch`` is the rank's batch as it is fed (its data shard of the
+    global batch, or all of it where the batch is replicated), so a rank's
+    bytes equal the spec arithmetic of the global caches."""
+    dev = resolve_device(device)
+    specs = None
+    if mesh is not None:
+        specs = SH.map_specs(SH.without_data_axes, SH.cache_specs(cfg, mesh))
+
+    def zeros(shape, dt, spec):
+        if spec is not None:
+            shape = SH.shard_shape(shape, spec, mesh)
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def attn_cache(n: int, spec) -> dict:
         if cfg.mla is not None:
             m = cfg.mla
             fields = {"latent": (n, batch, max_len, m.kv_lora_rank),
@@ -561,29 +581,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
         else:
             shape = (n, batch, max_len, cfg.n_kv_heads * cfg.kv_dup, cfg.d_head)
             fields = {"k": shape, "v": shape}
-        out = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, shape in fields.items()}
+        out = {k: zeros(shape, dtype, spec and spec[k]) for k, shape in fields.items()}
         out["index"] = torch.zeros((n,), dtype=torch.int32)
         return out
 
-    def mamba_cache(n: int) -> dict:
+    def mamba_cache(n: int, spec) -> dict:
         s = cfg.ssm
         conv_dim = cfg.d_inner_ssm + 2 * s.n_groups * s.d_state
-        return {"conv": torch.zeros((n, batch, s.d_conv - 1, conv_dim), dtype=dtype, device=dev),
-                "ssm": torch.zeros((n, batch, cfg.n_ssm_heads, s.head_dim, s.d_state),
-                                   dtype=torch.float32, device=dev)}
+        return {"conv": zeros((n, batch, s.d_conv - 1, conv_dim), dtype, spec and spec["conv"]),
+                "ssm": zeros((n, batch, cfg.n_ssm_heads, s.head_dim, s.d_state), torch.float32,
+                             spec and spec["ssm"])}
 
+    pair = specs if isinstance(specs, tuple) else (specs, specs)
     if cfg.family == "ssm":
-        return mamba_cache(cfg.n_layers)
+        return mamba_cache(cfg.n_layers, specs)
     if cfg.family == "hybrid":
-        return mamba_cache(cfg.n_layers), attn_cache(_n_groups(cfg))
+        return mamba_cache(cfg.n_layers, pair[0]), attn_cache(_n_groups(cfg), pair[1])
     if cfg.moe is not None and cfg.moe.first_k_dense:
         kd = cfg.moe.first_k_dense
-        return attn_cache(kd), attn_cache(cfg.n_layers - kd)
-    return attn_cache(cfg.n_layers)
+        return attn_cache(kd, pair[0]), attn_cache(cfg.n_layers - kd, pair[1])
+    return attn_cache(cfg.n_layers, specs)
 
 
-def decode_step(p: Model, cfg: ModelConfig, token, caches, *, mrope_pos=None, backend="auto"):
-    """One-token decode: token (B, 1) → ``(logits (B, 1, V), new caches)``."""
+def decode_step(p: Model, cfg: ModelConfig, token, caches, *, mrope_pos=None, backend="auto",
+                mesh=None):
+    """One-token decode: token (B, 1) → ``(logits (B, 1, V), new caches)``
+    (on a ``mesh``, the rank's cache shards: :func:`forward`)."""
     logits, new_caches, _ = forward(p, cfg, token, caches=caches, mrope_pos=mrope_pos,
-                                    backend=backend)
+                                    backend=backend, mesh=mesh)
     return logits, new_caches

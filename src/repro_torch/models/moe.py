@@ -82,26 +82,12 @@ def _route(logits: torch.Tensor, cfg: ModelConfig, dtype: torch.dtype):
     return idx, w.to(dtype), probs
 
 
-def load_balance(probs: torch.Tensor, idx: torch.Tensor, e: int, mesh=None) -> torch.Tensor:
+def load_balance(probs: torch.Tensor, idx: torch.Tensor, e: int) -> torch.Tensor:
     """The load-balance auxiliary loss of router probabilities (B, S, E)
-    and top-k ids (B, S, K): ``E * sum(mean prob * mean assignment)``.  On
-    the data ranks of ``mesh`` (each with its shard of the batch) the means
-    are the global batch's, as GSPMD computes them: the value is the
-    global loss on every rank, its gradient this shard's part of it."""
-    if mesh is None or mesh.world == 1:
-        me = probs.mean(dim=(0, 1))
-        frac = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1, 2))
-        return e * torch.sum(me * frac)
-    from repro_torch.distributed import sharding
-
-    n = torch.tensor([probs.shape[0] * probs.shape[1]], dtype=torch.float32,
-                     device=probs.device)
-    counts = F.one_hot(idx, e).to(torch.float32).sum(dim=(0, 1, 2))
-    tot = sharding.all_reduce(mesh, torch.cat([counts, n]), "sum")
-    frac = tot[:-1] / (tot[-1] * idx.shape[-1])
-    local = e * torch.sum(probs.sum(dim=(0, 1)) / tot[-1] * frac)
-    total = sharding.all_reduce(mesh, local.detach(), "sum")
-    return local + (total - local.detach())
+    and top-k ids (B, S, K): ``E * sum(mean prob * mean assignment)``."""
+    me = probs.mean(dim=(0, 1))
+    frac = F.one_hot(idx, e).to(torch.float32).mean(dim=(0, 1, 2))
+    return e * torch.sum(me * frac)
 
 
 def _expert_ffn(p: MoE, xs: torch.Tensor, be) -> torch.Tensor:
@@ -196,6 +182,9 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, dispatch: str | None
         raise ValueError(f"this MoE layer holds {p.wi.shape[0]} of {m.num_experts} experts "
                          "(a rank's slice): it runs only as sorted_ep on a registered mesh")
     be = backends.get_backend(backend, x.device)
+    dp = getattr(p, "dp_mesh", None)
+    if dp is not None and dp.world > 1:
+        return _global_batch(p, cfg, x, dp, mode, be)
     idx, w, probs = _router(p, cfg, x)
     if mode == "sorted":
         y = _moe_sorted_dispatch(p, cfg, x, idx, w, be)
@@ -203,4 +192,34 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor, *, dispatch: str | None
         y = _moe_dense_dispatch(p, cfg, x, idx, w, be)
     if p.shared is not None:
         y = y + mlp(p.shared, x, "swiglu")
-    return y, load_balance(probs, idx, m.num_experts, getattr(p, "dp_mesh", None))
+    return y, load_balance(probs, idx, m.num_experts)
+
+
+def _global_batch(p: MoE, cfg: ModelConfig, x: torch.Tensor, dp, mode: str, be):
+    """A sharded model's ``sorted`` or ``dense`` block on the data ranks
+    ``dp``, each with its shard of the batch (a view's ``dp_mesh``, None
+    where every rank holds the whole batch: that batch is routed as it is):
+    the reference's GSPMD routes the global batch (one capacity for all of
+    it, one order of drops), so the shards are all-gathered, routed and run
+    as one batch on every data rank, and each keeps its rows.  Every data
+    rank so runs the experts over the whole batch, |dp| times the block's
+    compute.  The load-balance term is the global batch's on every rank;
+    each rank's copy takes 1/|dp| of its cotangent
+    (``sharding.replicated_output``), so the data ranks' sum is its
+    gradient once."""
+    from repro_torch.distributed import sharding
+
+    b = x.shape[0]
+    x_all = sharding.all_gather_tiled(dp, x, dim=0)
+    idx, w, probs = _router(p, cfg, x_all)
+    if mode == "sorted":
+        y = _moe_sorted_dispatch(p, cfg, x_all, idx, w, be)
+    else:
+        y = _moe_dense_dispatch(p, cfg, x_all, idx, w, be)
+    y = y.narrow(0, dp.rank * b, b)
+    if p.shared is not None:
+        y = y + mlp(p.shared, x, "swiglu")
+    aux = load_balance(probs, idx, cfg.moe.num_experts)
+    if torch.is_grad_enabled():
+        aux = sharding.replicated_output(dp, aux)
+    return y, aux

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Dense, Norm, dense, normal, param, rmsnorm
 
@@ -93,7 +94,23 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int, ssm_state=None):
     return torch.cat(ys, 1), state
 
 
-def mamba2_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *, cache: dict | None = None):
+def _sharded_cache(cfg: ModelConfig, cache: dict, mesh):
+    """A rank's cache shard on ``mesh`` (``conv`` split by channels, ``ssm``
+    by heads over ``"model"``, as ``sharding.cache_specs`` lays them out)
+    -> ``(whole cache, fn(new whole cache) -> the rank's shard of it)``:
+    the shards all-gathered over ``"model"`` where the layer runs, and only
+    the rank's slice of the new cache kept."""
+    tp = mesh.sub("model")
+    s = cfg.ssm
+    conv_dim = cfg.d_inner_ssm + 2 * s.n_groups * s.d_state
+    whole = {"conv": SH.all_gather_tiled(tp, cache["conv"], dim=2)[..., :conv_dim],
+             "ssm": SH.all_gather_tiled(tp, cache["ssm"], dim=1)[:, :cfg.n_ssm_heads]}
+    specs = {"conv": (None, None, "model"), "ssm": (None, "model", None, None)}
+    return whole, lambda new: {k: SH.shard_of(v, specs[k], mesh) for k, v in new.items()}
+
+
+def mamba2_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *, cache: dict | None = None,
+                 mesh=None):
     """x (B, S, D) -> ``(out (B, S, D), new_cache)``.  Three modes:
 
     * no cache: the chunked scan from a zero state (``new_cache`` None);
@@ -106,7 +123,12 @@ def mamba2_block(p: Mamba2, cfg: ModelConfig, x: torch.Tensor, *, cache: dict | 
     ``cache`` is one layer's ``{"conv" (B, K-1, conv_dim), "ssm" (B, H, P,
     N) float32}``; the new cache's tensors are new ones, as the
     reference's (a decode step keeps the window in the promoted dtype of
-    the cache and the inputs)."""
+    the cache and the inputs).  On a ``mesh`` ``cache`` is the rank's shard
+    (:func:`_sharded_cache`), and so is the new one."""
+    if cache is not None and mesh is not None and mesh.shape.get("model", 1) > 1:
+        whole, keep = _sharded_cache(cfg, cache, mesh)
+        out, new = mamba2_block(p, cfg, x, cache=whole)
+        return out, keep(new)
     s = cfg.ssm
     b, l, _ = x.shape
     di, nh, gn = cfg.d_inner_ssm, cfg.n_ssm_heads, s.n_groups * s.d_state

@@ -49,18 +49,19 @@ class Block(nn.Module):
 
 
 def apply_block(p: Block, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                cache=None, mrope_pos=None, dispatch=None, backend="auto"):
-    """Returns ``(x, new_cache, aux)``."""
+                cache=None, mrope_pos=None, dispatch=None, backend="auto", mesh=None):
+    """Returns ``(x, new_cache, aux)``.  ``mesh``: the mesh of ranks whose
+    shard of the cache ``cache`` is (``model.init_cache(..., mesh=)``)."""
     if p.kind == "mamba":
         h, new_cache = SSM.mamba2_block(p.mixer, cfg, L.rmsnorm(p.norm, x, cfg.norm_eps),
-                                        cache=cache)
+                                        cache=cache, mesh=mesh)
         return x + h, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
     hn = L.rmsnorm(p.ln1, x, cfg.norm_eps)
     if cfg.mla is not None:
-        h, new_cache = L.mla_attention(p.attn, cfg, hn, positions, cache=cache)
+        h, new_cache = L.mla_attention(p.attn, cfg, hn, positions, cache=cache, mesh=mesh)
     else:
         h, new_cache = L.attention(p.attn, cfg, hn, positions, cache=cache,
-                                   mrope_pos=mrope_pos)
+                                   mrope_pos=mrope_pos, mesh=mesh)
     x = x + h
     hn = L.rmsnorm(p.ln2, x, cfg.norm_eps)
     if p.kind == "attn_moe":
@@ -105,7 +106,7 @@ def rematerialized(fn, *args):
 
 def apply_stack(blocks: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, caches=None, mrope_pos=None, dispatch=None,
-                backend="auto", full=None):
+                backend="auto", full=None, mesh=None):
     """Apply the blocks in order.  ``caches``: None, or the stack's caches
     stacked over layers: attention's ``{"k", "v", "index"}`` (k/v ``(L, B,
     Smax, KH, Dh)``) or MLA's ``{"latent", "k_rope", "index"}``, whose rows
@@ -115,7 +116,8 @@ def apply_stack(blocks: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
     :func:`remat_on`.  ``full``: a sharded model's ``fn(block) -> view``
     (:func:`repro_torch.distributed.fsdp.block_view`), applied where the
     block runs (inside the rematerialized function: the recompute gathers
-    the block's weights again)."""
+    the block's weights again).  ``mesh``: the caches are the rank's shards
+    on it (:func:`apply_block`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     full = full or (lambda blk: blk)
     if remat_on(cfg, x, blocks, caches):
@@ -132,7 +134,7 @@ def apply_stack(blocks: nn.ModuleList, cfg: ModelConfig, x: torch.Tensor,
     for i, blk in enumerate(blocks):
         cache = None if caches is None else layer_cache(caches, i)
         x, nc, a = apply_block(full(blk), cfg, x, positions, cache=cache, mrope_pos=mrope_pos,
-                               dispatch=dispatch, backend=backend)
+                               dispatch=dispatch, backend=backend, mesh=mesh)
         aux = aux + a
         olds.append(cache)
         news.append(nc)

@@ -2,7 +2,8 @@
 all-gather matmul and the GPipe pipeline, on the JAX package (``compute``,
 run by ``scripts/make_torch_ep_reference.py`` on 8 host devices) and on the
 port's ranks (``rank_main``, one spawned process a rank, joined over gloo).
-The same pool of ranks runs ``tests/_torch_sharding_cases.py``'s
+The same pool of ranks runs ``tests/_torch_sharding_cases.py``'s,
+``tests/_torch_sharded_serve_cases.py``'s and ``tests/_torch_dryrun_cases.py``'s
 ``POOL_CASES`` (``POOL_CASES`` here: every case, in order).
 
 Inputs come from per-case NumPy seeds; the MoE weights are the smoke
@@ -18,6 +19,8 @@ from pathlib import Path
 
 import numpy as np
 
+import _torch_dryrun_cases as DC
+import _torch_sharded_serve_cases as SV
 import _torch_sharding_cases as SC
 
 REFERENCE_FILE = Path(__file__).parent / "data" / "torch_ep_reference.npz"
@@ -54,16 +57,22 @@ STORED_CASES = tuple(BLOCKS) + ("serve-2x2",) + tuple(RINGS) + ("pipeline",)
 GRADCHECKS = ("boundary", "psum", "pmean", "all_gather_tiled", "all_to_all_blocks",
               "ppermute")
 # every case the pool runs, in order: these and tests/test_torch_sharding.py's
-POOL_CASES = STORED_CASES + ("gradcheck",) + SC.POOL_CASES
+POOL_CASES = STORED_CASES + ("gradcheck",) + SC.POOL_CASES + SV.POOL_CASES + DC.POOL_CASES
+# the modules whose cases run on the pool by their own ``port``
+OTHER_CASES = (SC, SV, DC)
 
 
 def case_rng(name: str):
     return np.random.default_rng(zlib.crc32(name.encode()))
 
 
+def _module_of(name: str):
+    return next((m for m in OTHER_CASES if name in m.POOL_MESH), None)
+
+
 def mesh_of(name: str) -> str:
-    if name in SC.POOL_MESH:
-        return SC.POOL_MESH[name]
+    if _module_of(name) is not None:
+        return _module_of(name).POOL_MESH[name]
     if name in BLOCKS:
         return BLOCKS[name]["mesh"]
     return {"serve-2x2": SERVE["mesh"], "pipeline": PIPELINE["mesh"],
@@ -86,7 +95,8 @@ def serve_cfg(get_config):
 
 def pool_inputs(name: str, workdir: Path) -> dict:
     """A pool case's inputs, and the directory its ranks share."""
-    inp = SC.inputs(name) if name in SC.POOL_MESH else inputs(name)
+    mod = _module_of(name)
+    inp = mod.inputs(name) if mod is not None else inputs(name)
     return dict(inp, _workdir=str(workdir / f"case_{name}"))
 
 
@@ -382,7 +392,8 @@ def rank_main(rank: int, world: int, rdv: str, tasks, results) -> None:
             results.put((rank, name, "idle", None))
             continue
         try:
-            out = (SC.port(name, mesh, inp, workdir) if name in SC.POOL_MESH
+            mod = _module_of(name)
+            out = (mod.port(name, mesh, inp, workdir) if mod is not None
                    else port(name, mesh, inp))
             out["imported"] = sorted(m for m in ("jax", "repro") if m in sys.modules)
             results.put((rank, name, "ok", out))

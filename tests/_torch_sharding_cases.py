@@ -15,8 +15,9 @@ meshes of ``Auto`` axes) and on the port's ranks (``port``, run on
 * ``init-2x4``: the qwen3-moe smoke model's weights placed by those specs
   on (2, 4): every device's addressable shard, by its mesh coordinates;
 * ``step-*``: two sharded train steps of a smoke config on (2, 4) from
-  the same weights and batch (llama3-8b and qwen3-moe through
-  ``sorted_ep`` with AdamW, mistral-large-123b with Adafactor): each
+  the same weights and batch (llama3-8b, qwen3-moe through ``sorted_ep``
+  and deepseek-v3 through its own ``sorted`` MoE with AdamW,
+  mistral-large-123b with Adafactor): each
   step's loss and gradient norm, then the global parameters and moments;
 * port-only, on the pool: the clip's norm with a replicated leaf and an
   uneven shard's gather, the elastic restore from (8,) to (4, 2), and
@@ -51,7 +52,9 @@ STEPS = {  # case -> (arch, optimizer)
     "step-llama": ("llama3-8b", "adamw"),
     "step-moe": ("qwen3-moe-30b-a3b", "adamw"),
     "step-mistral": ("mistral-large-123b", "adafactor"),
+    "step-sorted": ("deepseek-v3-671b", "adamw"),  # its own sorted MoE, rows dropped
 }
+EP_STEP = "step-moe"  # through sorted_ep
 B, S, N_STEPS, LR = 8, 32, 2, 2e-2
 TRAIN_MESH = dict(arch="llama3-8b", batch=8, seq=32, steps=3, cut=1)
 STORED_CASES = ("specs", "init-2x4") + tuple(STEPS)
@@ -70,12 +73,14 @@ def mesh_coords(shape, axes, rank: int) -> dict:
 
 
 def step_cfg(get_config, name: str):
-    """The case's smoke config on mesh axes ("data", "model"); qwen3-moe's
+    """The case's smoke config on mesh axes ("data", "model"); ``EP_STEP``'s
     through ``sorted_ep`` at capacity factor E/k, so that no chunk drops a
-    row (either package's ``get_config``)."""
+    row (either package's ``get_config``); deepseek-v3's through its own
+    ``sorted`` dispatch at capacity factor 1.25, each data rank routing
+    the global batch as GSPMD does (``moe._global_batch``)."""
     arch, _ = STEPS[name]
     cfg = dc.replace(get_config(arch, smoke=True), mesh_axes=("data", "model"))
-    if cfg.moe is not None:
+    if name == EP_STEP:
         m = cfg.moe
         cfg = dc.replace(cfg, moe=dc.replace(m, dispatch="sorted_ep",
                                              capacity_factor=m.num_experts / m.top_k))

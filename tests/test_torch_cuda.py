@@ -843,6 +843,35 @@ def test_sharded_train_step_on_the_card_matches_plain(dev, tmp_path):
             assert plain["launches"]["argsort"] == 0
 
 
+def test_sharded_serve_on_the_card_matches_plain_and_one_process(dev, tmp_path):
+    """Two ranks share the card over gloo on (1, 2): the qwen3-moe smoke
+    config in float32 served through ``generate(mesh=)`` (every leaf
+    sharded, ``sorted_ep``, each rank's half of the KV heads), teacher-forced
+    for a prefill and two decode steps: the kernels against the plain
+    versions and against one process from the same draw, logits within
+    rtol/atol 1e-3, the argsort and the grouped matmul launched."""
+    import _torch_sharded_serve_cases as cases
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=cases.card_rank_main, daemon=True,
+                         args=(r, 2, str(tmp_path / "rdv"), q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    got = dict(q.get(timeout=300) for _ in procs)
+    for p in procs:
+        p.join(timeout=60)
+    for r, res in got.items():
+        assert isinstance(res, dict), res
+        card, plain = res["cuda"], res["torch"]
+        np.testing.assert_allclose(card["logits"], plain["logits"], rtol=1e-3, atol=1e-3)
+        assert card["launches"]["argsort"] > 0 and card["launches"]["grouped_matmul_simt"] > 0
+        assert plain["launches"]["argsort"] == 0
+        assert np.array_equal(card["logits"], got[0]["cuda"]["logits"])  # alike on every rank
+    np.testing.assert_allclose(got[0]["cuda"]["logits"], got[0]["one process"]["logits"],
+                               rtol=1e-3, atol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
